@@ -7,7 +7,9 @@ Builds every hand-written kernel from the sources in the checkout, holds
 each against its plain PyTorch version at the shapes the main path gives
 it, drives the main path (build_fit_session -> FitSession.fit ->
 recover_outputs on the collision-off combined preset, B=128 frames of a
-full-width synthetic SMPL-X, V=10475), and checks the result.  Each phase
+full-width synthetic SMPL-X, V=10475; `smplifyx_torch.problem.build_slice`),
+and checks the result, a sample of its lanes against the same fit through
+the plain versions on the CPU.  Each phase
 prints one JSON line; the card's name and power limit are printed as
 nvidia-smi gives them; the `kernels` line comes just before the last line,
 which is {"ok": true, "device": {...}}.  Any failed check raises and the
@@ -24,14 +26,10 @@ import subprocess
 import sys
 import time
 
-B_MAIN = 128
-V_FULL = 10475
-PRESET = "cfg/fit_smplx_combined_coco25.yaml"
-SLICE = dict(interpenetration=False, synthetic_model=True,
-             synthetic_num_verts=V_FULL, use_camera_prior=False,
-             use_gender_classifier=False)
 FWD_TOL = 1e-5      # f32 sums over J=55 in another order
 GRAD_TOL = 1e-4     # the bound of tests/test_lbs_pallas.py, per unit of scale
+LANE_SAMPLE = 4     # main-path lanes fitted again on the CPU
+LANE_LOSS_RTOL = 0.05
 
 # Data-sheet peaks (dense, no sparsity): FP32 on the CUDA cores, memory rate.
 PEAKS = {  # name fragment -> (FP32 FLOP/s, bytes/s)
@@ -159,16 +157,18 @@ def check_lbs(name, W, B, peak, seed):
     return row
 
 
-def phase_lbs(model, jm, peak):
+def phase_lbs(model, jm, batch, peak):
+    """K1 at the main path's two shapes (the mesh of `recover_outputs`, the
+    landmark subset over the doubled batch) and at a ragged one."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     W_ragged = torch.rand(500, 55, device="cuda", generator=gen)
     W_ragged = W_ragged / W_ragged.sum(-1, keepdim=True)
     rows = [
-        check_lbs("full_mesh", model.lbs_weights, B_MAIN, peak, 1),
+        check_lbs("full_mesh", model.lbs_weights, batch, peak, 1),
         check_lbs("ragged", W_ragged, 3, peak, 2),
-        check_lbs("subset", jm.sub_lbs, 2 * B_MAIN, peak, 3),
+        check_lbs("subset", jm.sub_lbs, 2 * batch, peak, 3),
     ]
     return rows
 
@@ -196,7 +196,8 @@ def phase_energy(session, model, jm, frames, x0):
     (fd, gd), (fs, gs) = res
     f_rel = ((fd - fs).abs() / fd.abs()).max().item()
     g_rel = ((gd - gs).abs().max() / gd.abs().max()).item()
-    emit({"phase": "energy_dense_vs_sparse", "B": x.shape[0], "V": V_FULL,
+    emit({"phase": "energy_dense_vs_sparse", "B": x.shape[0],
+          "V": model.lbs_weights.shape[0],
           "value_max_rel_err": f_rel, "grad_max_err_per_scale": g_rel,
           "finite": bool(torch.isfinite(fd).all() and torch.isfinite(gd).all())})
     if not (f_rel <= 1e-4 and g_rel <= 1e-4
@@ -220,22 +221,17 @@ def reprojection_px(session, model, frames, x):
     return dist.mean(-1), out
 
 
-def setup(cfg):
+def setup():
     """The user's entry points: session, model, joints model, frames."""
     import torch
 
-    from smplifyx_torch.models.sparse import build_joints_model
-    from smplifyx_torch.problem import build_problem
-    from smplifyx_torch.session import build_fit_session
+    from smplifyx_torch.problem import build_slice
 
     t0 = time.perf_counter()
-    session = build_fit_session(cfg)
-    model = session.get_model("neutral")
-    jm = build_joints_model(model)
-    _, _, frames, x0, _ = build_problem(B_MAIN, V_FULL,
-                                        settings=session.settings)
+    session, model, jm, frames, x0 = build_slice()
     torch.cuda.synchronize()
     emit({"phase": "setup", "seconds": time.perf_counter() - t0,
+          "B": int(x0.shape[0]), "V": int(model.lbs_weights.shape[0]),
           "subset_vertices": int(jm.sub_lbs.shape[0]), "dim": int(x0.shape[1])})
     return session, model, jm, frames, x0
 
@@ -263,12 +259,13 @@ def phase_main_path(session, model, jm, frames, x0):
     main_launches = lbs_apply.launches
 
     reproj0, _ = reprojection_px(session, model, frames, x0)
+    B, V = x0.shape[0], model.lbs_weights.shape[0]
     losses = torch.cat([res.loss[None], res.camera_loss[None],
                         res.stage_losses])
     emit({
         "phase": "main_path", "card": torch.cuda.get_device_name(0),
-        "B": B_MAIN, "V": V_FULL, "first_fit_s": first_s,
-        "fit_s": fit_s, "frames_per_s": B_MAIN / fit_s,
+        "B": B, "V": V, "first_fit_s": first_s,
+        "fit_s": fit_s, "frames_per_s": B / fit_s,
         "host_reads_per_fit": res.host_reads,
         "lbs_launches_fit": fit_launches, "lbs_launches_main": main_launches,
         "camera_evals_max": int(res.camera_evals.max()),
@@ -285,40 +282,40 @@ def phase_main_path(session, model, jm, frames, x0):
         raise AssertionError("a loss is not finite")
     if not bool((reproj < reproj0).all()):
         raise AssertionError("some lane's reprojection did not improve on x0")
-    if tuple(out.vertices.shape) != (B_MAIN, V_FULL, 3) or not bool(
+    if tuple(out.vertices.shape) != (B, V, 3) or not bool(
             torch.isfinite(out.vertices).all()):
         raise AssertionError("recovered mesh has the wrong shape or non-finite values")
     if fit_launches <= 0:
         raise AssertionError("the fit never launched the lbs kernel")
-    return main_launches
+    return res, main_launches
 
 
-def phase_small_reference():
-    """The same small fit on the card and through the plain versions on the
-    CPU agrees at loss level (5%, as f32 L-BFGS paths diverge)."""
+def phase_lane_reference(res, frames, x0, lanes=LANE_SAMPLE):
+    """The first lanes of the main-path problem, fitted again through the
+    plain versions on the CPU, end at the card's final loss per lane
+    (within 5%: f32 L-BFGS paths diverge between devices)."""
     import torch
 
     from smplifyx_torch.models.sparse import build_joints_model
-    from smplifyx_torch.problem import build_problem
+    from smplifyx_torch.problem import slice_config
     from smplifyx_torch.session import build_fit_session
-    from smplifyx_torch.utils.config import load_config
 
-    cfg = load_config(PRESET, **{**SLICE, "synthetic_num_verts": 96,
-                                 "maxiters": 5})
-    losses = {}
-    for dev in ("cuda", "cpu"):
-        session = build_fit_session(cfg, device=dev)
-        model = session.get_model("neutral")
-        _, _, frames, x0, _ = build_problem(4, 96, settings=session.settings,
-                                            device=dev)
-        res = session.fit(model, build_joints_model(model), frames, x0)
-        losses[dev] = res.loss.cpu()
-    rel = ((losses["cuda"] - losses["cpu"]).abs() / losses["cpu"].abs()).max().item()
-    emit({"phase": "small_reference", "B": 4, "V": 96,
-          "loss_cuda": losses["cuda"].tolist(), "loss_cpu": losses["cpu"].tolist(),
-          "max_rel_diff": rel})
-    if not rel <= 0.05:
-        raise AssertionError(f"card and CPU fits differ by {rel:.3g} > 5%")
+    t0 = time.perf_counter()
+    session = build_fit_session(slice_config(), device="cpu")
+    model = session.get_model("neutral")
+    cpu = session.fit(model, build_joints_model(model),
+                      frames.map(lambda a: a[:lanes].cpu()), x0[:lanes].cpu())
+    card = res.loss[:lanes].cpu()
+    rel = ((card - cpu.loss).abs() / cpu.loss.abs()).max().item()
+    emit({"phase": "lane_reference", "lanes": lanes,
+          "V": int(model.lbs_weights.shape[0]),
+          "cpu_fit_s": time.perf_counter() - t0,
+          "loss_card": card.tolist(), "loss_cpu": cpu.loss.tolist(),
+          "flipped_card": res.flipped[:lanes].tolist(),
+          "flipped_cpu": cpu.flipped.tolist(), "max_rel_diff": rel})
+    if not rel <= LANE_LOSS_RTOL:
+        raise AssertionError(
+            f"card and CPU fits differ by {rel:.3g} > {LANE_LOSS_RTOL}")
 
 
 def main() -> int:
@@ -328,15 +325,13 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     os.chdir(here)
     sys.path.insert(0, here)
-    from smplifyx_torch.utils.config import load_config
-
     peak = peaks_for(name)
     phase_build()
-    session, model, jm, frames, x0 = setup(load_config(PRESET, **SLICE))
-    rows = phase_lbs(model, jm, peak)
+    session, model, jm, frames, x0 = setup()
+    rows = phase_lbs(model, jm, x0.shape[0], peak)
     phase_energy(session, model, jm, frames, x0)
-    main_launches = phase_main_path(session, model, jm, frames, x0)
-    phase_small_reference()
+    res, main_launches = phase_main_path(session, model, jm, frames, x0)
+    phase_lane_reference(res, frames, x0)
 
     full = rows[0]
     emit({"kernels": [{

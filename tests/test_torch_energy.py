@@ -7,7 +7,6 @@ the full-mesh forward; then the camera-init energy in all three conf modes
 and the depth guess."""
 
 import dataclasses
-import os
 
 import numpy as np
 import jax
@@ -28,12 +27,9 @@ from smplifyx_torch import convert
 from smplifyx_torch.fitting import energy as ten
 from smplifyx_torch.fitting.prepare import settings_from_config as t_settings
 from smplifyx_torch.fitting.stages import build_stage_schedule as t_schedule
+from smplifyx_torch.problem import SLICE_OVERRIDES, SLICE_PRESET
 from smplifyx_torch.utils.config import load_config as t_load_config
 
-PRESET = os.path.join(os.path.dirname(__file__), "..", "cfg",
-                      "fit_smplx_combined_coco25.yaml")
-OVERRIDES = dict(interpenetration=False, use_camera_prior=False,
-                 use_gender_classifier=False)
 TERMS = ("data", "pose_prior", "shape", "bending", "hands", "expression",
          "jaw")
 B = 3
@@ -55,8 +51,8 @@ def schedule_args(cfg):
 
 @pytest.fixture(scope="module")
 def problem():
-    jcfg = j_load_config(PRESET, **OVERRIDES)
-    tcfg = t_load_config(PRESET, **OVERRIDES)
+    jcfg = j_load_config(SLICE_PRESET, **SLICE_OVERRIDES)
+    tcfg = t_load_config(SLICE_PRESET, **SLICE_OVERRIDES)
     js = j_settings(jcfg)
     ts = t_settings(tcfg)
     assert convert.fit_settings(jfields(js)) == ts

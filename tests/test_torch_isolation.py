@@ -9,9 +9,8 @@ import pytest
 import torch
 
 from smplifyx_torch.fitting.pipeline import fit_batch, recover_outputs
-from smplifyx_torch.problem import build_problem
+from smplifyx_torch.problem import build_problem, slice_config
 from smplifyx_torch.session import build_fit_session
-from smplifyx_torch.utils.config import load_config
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "smplifyx_tpu")
@@ -40,10 +39,7 @@ def no_card(monkeypatch):
 
 
 def test_entry_points_refuse_the_cpu_by_default(no_card):
-    cfg = load_config(
-        str(ROOT / "cfg" / "fit_smplx_combined_coco25.yaml"),
-        interpenetration=False, synthetic_model=True, synthetic_num_verts=96,
-        use_camera_prior=False)
+    cfg = slice_config(96)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_fit_session(cfg)
     session = build_fit_session(cfg, device="cpu")

@@ -6,7 +6,6 @@ configuration is the combined preset without collision and with the
 guess-init camera path."""
 
 import dataclasses
-import os
 
 import numpy as np
 import jax
@@ -28,15 +27,15 @@ from smplifyx_torch import convert
 from smplifyx_torch.fitting.lbfgs import LBFGSConfig
 from smplifyx_torch.fitting.pipeline import FitOptions, fit_batch, recover_outputs
 from smplifyx_torch.models.sparse import build_joints_model
-from smplifyx_torch.problem import build_problem
+from smplifyx_torch.problem import (
+    SLICE_OVERRIDES,
+    SLICE_PRESET,
+    build_problem,
+    build_slice,
+    slice_config,
+)
 from smplifyx_torch.session import build_fit_session
-from smplifyx_torch.utils.config import load_config
 
-PRESET = os.path.join(os.path.dirname(__file__), "..", "cfg",
-                      "fit_smplx_combined_coco25.yaml")
-SLICE = dict(interpenetration=False, synthetic_model=True,
-             synthetic_num_verts=96, use_camera_prior=False,
-             use_gender_classifier=False)
 B, V, ITERS = 2, 96, 10
 
 
@@ -57,7 +56,8 @@ def schedule_args(cfg):
 @pytest.fixture(scope="module")
 def fits():
     """The same problem fitted by both packages, at <= ITERS per stage."""
-    jcfg = j_load_config(PRESET, **SLICE)
+    jcfg = j_load_config(SLICE_PRESET, **SLICE_OVERRIDES,
+                         synthetic_num_verts=V)
     model, _, jframes, x0, jmap = bench.build_problem(B, V)
     js = j_settings(jcfg)
     edges = jnp.asarray(jcfg.body_tri_pairs)
@@ -130,12 +130,9 @@ def test_recover_outputs_matches(fits):
 
 
 def test_session_runs_the_slice_end_to_end():
-    cfg = load_config(PRESET, **SLICE, maxiters=3)
-    session = build_fit_session(cfg, device="cpu")
-    model = session.get_model("neutral")
-    _, _, frames, x0, _ = build_problem(B, V, settings=session.settings,
-                                        device="cpu")
-    res = session.fit(model, build_joints_model(model), frames, x0)
+    session, model, jm, frames, x0 = build_slice(B, V, device="cpu",
+                                                 maxiters=3)
+    res = session.fit(model, jm, frames, x0)
     assert np.isfinite(res.loss.numpy()).all()
     assert np.isfinite(res.camera_loss.numpy()).all()
     out, _, _ = recover_outputs(model, session.settings, res.x,
@@ -151,6 +148,6 @@ def test_session_runs_the_slice_end_to_end():
     (dict(optim_type="adam"), "item 8"),
 ])
 def test_session_refuses_unported_paths(override, item):
-    cfg = load_config(PRESET, **{**SLICE, **override})
+    cfg = slice_config(V, **override)
     with pytest.raises(NotImplementedError, match=item):
         build_fit_session(cfg, device="cpu")
