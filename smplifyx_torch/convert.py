@@ -17,6 +17,7 @@ from smplifyx_torch.fitting.energy import FrameData, StageWeights
 from smplifyx_torch.fitting.params import FitSettings
 from smplifyx_torch.models.bodymodel import SMPLXModel, model_from_arrays
 from smplifyx_torch.models.sparse import JointsModel
+from smplifyx_torch.ops.collision import CollisionAux
 from smplifyx_torch.priors.priors import GMMPrior
 from smplifyx_torch.utils.device import resolve_device
 
@@ -63,3 +64,19 @@ def frame_data(fields: dict, device="cuda") -> FrameData:
 def fit_settings(fields: dict) -> FitSettings:
     return FitSettings(**{f.name: fields[f.name]
                           for f in dataclasses.fields(FitSettings)})
+
+
+def collision_aux(aux: tuple, device="cuda") -> CollisionAux:
+    """A batched JAX collision aux (numpy): (tri_corners [B, T, 3],
+    (pa, pb) [B, P], valid [B, P], order [B, F], sorted_pack [B, F, 3]
+    f32) -> the port's CollisionAux, ids as int64."""
+    dev = resolve_device(device)
+    tri_corners, (pa, pb), valid, order, sorted_pack = aux
+
+    def ids(a):
+        return torch.as_tensor(np.asarray(a).astype(np.int64), device=dev)
+
+    return CollisionAux(
+        tri_corners=ids(tri_corners), pa=ids(pa), pb=ids(pb),
+        valid=torch.as_tensor(np.array(valid, bool), device=dev),
+        order=ids(order), sorted_pack=ids(sorted_pack))

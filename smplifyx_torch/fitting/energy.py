@@ -13,7 +13,8 @@ Terms (reference SMPLifyLoss.forward, fitting.py:375-461):
   hands       sum(pca^2) * w^2 each side (or a GMM)
   expression  sum(expr^2) * w^2
   jaw         sum((jaw * jaw_w_vec)^2)
-  collision   not ported yet (ROADMAP queue 1 item 7)
+  collision   coll_loss_weight * cone penalty of the surviving triangle
+              pairs (ops/collision.py), on the full mesh
 """
 
 from __future__ import annotations
@@ -120,16 +121,28 @@ def smplify_energy_terms(
     joints_model=None,
     lhand_gmm: Optional[GMMPrior] = None,
     rhand_gmm: Optional[GMMPrior] = None,
+    collision_fn=None,
+    collision_aux=None,
 ) -> dict:
-    """Per-term SMPLify objective, each term [B] (w is one stage)."""
-    if settings.interpenetration:
-        raise NotImplementedError(
-            "the collision term is not ported yet (ROADMAP queue 1 item 7)"
-        )
+    """Per-term SMPLify objective, each term [B] (w is one stage).
+
+    With settings.interpenetration the full-mesh forward runs and, given a
+    collision_fn, the collision term scores its vertices: on the pair list
+    `collision_aux` (a broad phase hoisted out of the line search) or, when
+    that is None, on a broad phase run in this evaluation.  Without it
+    every term reads only the params and the mapped joints, so the
+    joints-only forward serves whenever a JointsModel is given."""
     params, cam_t, body_raw = body_params_from_flat(settings, x, decode_body)
-    # Every term reads only the params and the mapped joints, so the
-    # joints-only forward serves whenever a JointsModel is given.
-    joints = _mapped_joints(settings, model, params, joint_map, joints_model)
+    vertices = None
+    if settings.interpenetration:
+        out = smplx_forward(model, params, use_pca=settings.use_pca,
+                            flat_hand_mean=settings.flat_hand_mean,
+                            use_face_contour=settings.use_face_contour,
+                            joint_map=joint_map, return_verts=True)
+        joints, vertices = out.joints, out.vertices
+    else:
+        joints = _mapped_joints(settings, model, params, joint_map,
+                                joints_model)
     proj = project_points(make_camera(frames, cam_t), joints)   # [B, K, 2]
 
     joint_w = stage_joint_weights(settings, frames, w)
@@ -177,10 +190,16 @@ def smplify_energy_terms(
         if settings.jaw_prior_type != "none":
             jaw_loss = sq(params.jaw_pose * w.jaw_prior_weight)
 
+    pen_loss = zero
+    if settings.interpenetration and collision_fn is not None:
+        pen = (collision_fn(vertices) if collision_aux is None
+               else collision_fn.apply(vertices, collision_aux))
+        pen_loss = w.coll_loss_weight * pen
+
     return {
         "data": joint_loss, "pose_prior": pprior, "shape": shape_loss,
         "bending": bend, "hands": hand_loss, "expression": expr_loss,
-        "jaw": jaw_loss, "collision": zero,
+        "jaw": jaw_loss, "collision": pen_loss,
     }
 
 

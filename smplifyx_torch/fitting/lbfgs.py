@@ -43,6 +43,8 @@ class LBFGSConfig:
     max_dir_inf: float = 0.0
     # Cap on objective evaluations per lane (0 = unlimited).
     max_evals: int = 0
+    # Rebuild minimize()'s aux every this many iterations (aux_fn only).
+    aux_every: int = 1
     ls_mode: str = "wolfe"        # "wolfe" | "armijo"
     lr: float = 1.0
     ftol: float = 1e-9            # relative f change
@@ -316,17 +318,41 @@ def _two_loop(g, S_hist, Y_hist, rho, n_hist, m):
     return -r
 
 
+def _pick_aux(c, new, old):
+    """Per-lane select over an aux tuple of [B, ...] tensors."""
+    items = [_where(c, n, o) for n, o in zip(new, old)]
+    return old._make(items) if hasattr(old, "_make") else tuple(items)
+
+
 def minimize(
-    fun: Callable[[torch.Tensor], torch.Tensor],
+    fun: Callable[..., torch.Tensor],
     x0: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     cfg: LBFGSConfig = LBFGSConfig(),
+    aux_fn: Optional[Callable[[torch.Tensor], tuple]] = None,
+    aux_refresh_fn: Optional[Callable[[torch.Tensor, tuple], tuple]] = None,
 ) -> LBFGSResult:
     """Minimize each lane of fun over the masked subspace of x0.
 
     fun: [B, D] -> [B], lanes independent (lane b's value depends on x[b]
     only), differentiable by autograd.  mask: [D] or [B, D] 0/1 floats;
     zero entries are frozen.
+
+    aux_fn: optional `x -> aux`, a tuple of [B, ...] tensors that is not
+    differentiated (the collision broad phase, ops/collision.py `build`).
+    With it, fun takes `(x, aux)`; the aux is rebuilt every
+    `cfg.aux_every` iterations at the then-current iterate and every
+    evaluation in between reuses it.  aux_refresh_fn: optional
+    `(x, aux_prev) -> aux` used for every rebuild after the first
+    (`build_refresh`, which keeps the previous Morton order).
+
+    As in the JAX package, an outer loop rebuilds the aux and re-evaluates
+    f and g under it (one evaluation per period); an inner loop runs up to
+    `aux_every` iterations per lane.  Convergence inside a period is
+    provisional: the next rebuild seals a lane only if its fresh gradient
+    is within gtol or its fresh value within ftol of the converged one,
+    and otherwise reopens it.  Lanes that have left the outer loop keep
+    their state and their aux.
     """
     B, D = x0.shape
     m = cfg.history
@@ -335,19 +361,23 @@ def minimize(
     free = (mask > 0).expand(B, D)
     reads = _Reads()
 
-    def value_grad(x):
+    def call(x, aux):
+        return fun(x) if aux_fn is None else fun(x, aux)
+
+    def value_grad(x, aux):
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
-            f = fun(x)
+            f = call(x, aux)
             (g,) = torch.autograd.grad(f.sum(), x)
         return f.detach(), torch.where(free, g, 0.0)
 
-    def value(x):
+    def value(x, aux):
         with torch.no_grad():
-            return fun(x)
+            return call(x, aux)
 
     x = x0.detach()
-    f, g = value_grad(x)
+    aux = aux_fn(x) if aux_fn is not None else None
+    f, g = value_grad(x, aux)
     g_max = torch.amax(torch.abs(g), dim=-1)
     st = dict(
         x=x, f=f, g=g,
@@ -359,14 +389,25 @@ def minimize(
         done=(g_max <= cfg.gtol) | ~torch.isfinite(f),
         converged=(g_max <= cfg.gtol) & torch.isfinite(f),
         t_prev=torch.full((B,), cfg.lr, dtype=x.dtype, device=x.device),
+        sealed=torch.zeros(B, dtype=torch.bool, device=x.device),
     )
 
-    while True:
+    def running(st):
         active = ~st["done"] & (st["it"] < cfg.max_iters)
         if cfg.max_evals > 0:
             active = active & (st["n_evals"] < cfg.max_evals)
-        if not reads.any(active):
-            break
+        return active
+
+    def iterate(st, aux, gate):
+        """L-BFGS iterations under a fixed aux while any lane runs and
+        passes gate(st)."""
+        while True:
+            active = gate(st) & running(st)
+            if not reads.any(active):
+                return st
+            st = _pick(active, _iteration(st, active, aux), st)
+
+    def _iteration(st, active, aux):
         x, f, g, n_hist = st["x"], st["f"], st["g"], st["n_hist"]
         first = n_hist == 0
         d = _two_loop(g, st["S_hist"], st["Y_hist"], st["rho"], n_hist, m)
@@ -392,12 +433,17 @@ def minimize(
             torch.clamp(1.0 / torch.clamp(g_abs_sum, min=1e-20), max=1.0) * cfg.lr,
             later_t,
         )
+
+        def vg(z):
+            return value_grad(z, aux)
+
         if cfg.ls_mode == "armijo":
             t, f_new, g_new, ls_evals = _armijo_backtrack(
-                value, value_grad, x, t0, d, f, g, gtd, cfg, active, reads)
+                lambda z: value(z, aux), vg, x, t0, d, f, g, gtd, cfg, active,
+                reads)
         else:
             t, f_new, g_new, ls_evals = _strong_wolfe(
-                value_grad, x, t0, d, f, g, gtd, cfg, active, reads)
+                vg, x, t0, d, f, g, gtd, cfg, active, reads)
 
         # t == 0 (failed search) must reproduce x exactly, even when d holds
         # non-finite entries.
@@ -428,7 +474,7 @@ def minimize(
         small_step = torch.amax(torch.abs(step), dim=-1) <= cfg.tol_change
         conv = (small_f | small_g | small_step) & ~retry
 
-        new = dict(
+        return dict(
             x=_where(non_finite, x, x + step),
             f=torch.where(non_finite, f, f_new),
             g=_where(non_finite, g, g_new),
@@ -436,8 +482,39 @@ def minimize(
             it=st["it"] + 1, n_evals=st["n_evals"] + ls_evals,
             done=non_finite | conv, converged=conv & ~non_finite,
             t_prev=torch.where(t > 0, t, st["t_prev"]),
+            sealed=st["sealed"],
         )
-        st = _pick(active, new, st)
+
+    if aux_fn is None:
+        st = iterate(st, None, lambda s: torch.ones_like(s["done"]))
+    else:
+        K = max(1, cfg.aux_every)
+        while True:
+            outer = ~st["sealed"] & (st["it"] < cfg.max_iters)
+            if cfg.max_evals > 0:
+                outer = outer & (st["n_evals"] < cfg.max_evals)
+            if not reads.any(outer):
+                break
+            # f and g are re-evaluated under the fresh aux: a stale Armijo
+            # reference makes every trial look like an ascent.
+            fresh = (aux_refresh_fn(st["x"], aux) if aux_refresh_fn is not None
+                     else aux_fn(st["x"]))
+            aux = _pick_aux(outer, fresh, aux)
+            f_cur, g_cur = value_grad(st["x"], aux)
+            g_small = torch.amax(torch.abs(g_cur), dim=-1) <= cfg.gtol
+            # Seal on f-stationarity too: a lane that converged by ftol or
+            # tol_change inside the period rarely reaches gtol in f32.
+            f_rel = torch.abs(f_cur - st["f"]) / torch.clamp(
+                torch.maximum(torch.abs(f_cur), torch.abs(st["f"])), min=1.0)
+            confirm = st["done"] & (g_small | (f_rel <= cfg.ftol)
+                                    | ~torch.isfinite(f_cur))
+            st = _pick(outer, dict(
+                st, f=f_cur, g=g_cur, n_evals=st["n_evals"] + 1,
+                sealed=confirm, done=confirm,
+                converged=st["converged"] & confirm), st)
+            period_end = st["it"] + K
+            st = iterate(st, aux,
+                         lambda s: outer & (s["it"] < period_end))
 
     return LBFGSResult(x=st["x"], f=st["f"], g=st["g"], n_iters=st["it"],
                        n_evals=st["n_evals"], converged=st["converged"],

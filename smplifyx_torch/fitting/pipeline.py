@@ -42,7 +42,7 @@ from smplifyx_torch.utils.device import full_f32_matmuls, resolve_device
 @dataclass(frozen=True)
 class FitOptions:
     """Pipeline options (the JAX package's FitOptions without the
-    collision and TPU-precision fields)."""
+    TPU-precision and stage-snapshot fields)."""
 
     lbfgs: LBFGSConfig = field(default_factory=LBFGSConfig)
     camera_lbfgs: LBFGSConfig = field(default_factory=LBFGSConfig)
@@ -52,6 +52,12 @@ class FitOptions:
     left_shoulder_idx: int = 2
     right_shoulder_idx: int = 5
     use_camera_prior: bool = False
+    # Collision broad-phase refresh: "iter" builds the pair list once per
+    # L-BFGS refresh period (`LBFGSConfig.aux_every` iterations) and reuses
+    # it across the line searches, with an AABB recheck per evaluation;
+    # "eval" runs the broad phase in every evaluation (exact reference
+    # semantics).
+    coll_broad_refresh: str = "iter"
 
 
 @dataclass
@@ -87,13 +93,16 @@ def fit_batch(
     coll_stage_mask: Optional[tuple] = None,
     lhand_gmm=None,
     rhand_gmm=None,
+    collision_fn=None,
     device="cuda",
 ) -> FitResult:
     """Fit a batch of frames.
 
     `coll_stage_mask` (one bool per stage) marks the stages that apply the
-    collision penalty; those wait for the collision port and raise.  Every
-    other stage runs the joints-only energy when a JointsModel is given.
+    collision penalty `collision_fn` (ops/collision.py) on the full-mesh
+    forward; by default every stage does when settings.interpenetration is
+    set and a collision_fn is given.  Every other stage runs the
+    joints-only energy when a JointsModel is given.
     """
     dev = resolve_device(device)
     _check_device(dev, x0=x0, gt_joints=frames.gt_joints,
@@ -107,13 +116,17 @@ def fit_batch(
     B = x0.shape[0]
     num_stages = stage_weights.num_stages
     if coll_stage_mask is None:
-        coll_stage_mask = (settings.interpenetration,) * num_stages
+        coll_stage_mask = (settings.interpenetration
+                           and collision_fn is not None,) * num_stages
     if len(coll_stage_mask) != num_stages:
         raise ValueError("coll_stage_mask needs one entry per stage")
-    if any(coll_stage_mask):
-        raise NotImplementedError(
-            "collision stages are not ported yet (ROADMAP queue 1 item 7)"
-        )
+    if any(coll_stage_mask) and (collision_fn is None
+                                 or not settings.interpenetration):
+        raise ValueError("collision stages need settings.interpenetration "
+                         "and a collision_fn")
+    if options.coll_broad_refresh not in ("iter", "eval"):
+        raise ValueError(
+            f"coll_broad_refresh={options.coll_broad_refresh!r}: 'iter' or 'eval'")
     reads = 0
 
     # ---- camera translation init (guess_init path)
@@ -155,23 +168,48 @@ def fit_batch(
         frames2 = frames
 
     # ---- body stages
-    # No stage carries the collision term, so every stage takes the
-    # joints-only energy (settings.interpenetration would force the dense one).
-    stage_settings = dataclasses.replace(settings, interpenetration=False)
+    # A stage without the collision term takes the joints-only energy
+    # (settings.interpenetration would force the full-mesh one).
+    plain_settings = dataclasses.replace(settings, interpenetration=False)
     body_mask = body_stage_mask(settings, dev)
+
+    def vertices_of(z):
+        params, _, _ = body_params_from_flat(settings, z, decode_body)
+        return smplx_forward(
+            model, params, use_pca=settings.use_pca,
+            flat_hand_mean=settings.flat_hand_mean,
+            use_face_contour=settings.use_face_contour, return_verts=True,
+        ).vertices
+
     x_cur = xs
     losses, evals = [], []
     for k in range(num_stages):
         w = stage_weights.stage(k)
+        with_coll = coll_stage_mask[k]
+        hoist = with_coll and options.coll_broad_refresh == "iter"
 
-        def fun(z, w=w, k=k):
+        def fun(z, aux=None, w=w, k=k, with_coll=with_coll):
             return smplify_energy(
-                z, stage_settings, model, frames2, w, k, num_stages,
-                decode_body, joint_map, gmm=gmm, joints_model=joints_model,
-                lhand_gmm=lhand_gmm, rhand_gmm=rhand_gmm,
+                z, settings if with_coll else plain_settings, model, frames2,
+                w, k, num_stages, decode_body, joint_map, gmm=gmm,
+                joints_model=joints_model, lhand_gmm=lhand_gmm,
+                rhand_gmm=rhand_gmm,
+                collision_fn=collision_fn if with_coll else None,
+                collision_aux=aux,
             )
 
-        res = minimize(fun, x_cur, body_mask, options.lbfgs)
+        aux_fn = aux_refresh_fn = None
+        if hoist:
+            # A refresh keeps the stage's first Morton order (build_refresh):
+            # exact up to the pair budgets for any order, and skips the sort.
+            def aux_fn(z):
+                return collision_fn.build(vertices_of(z))
+
+            def aux_refresh_fn(z, aux):
+                return collision_fn.build_refresh(vertices_of(z), aux)
+
+        res = minimize(fun, x_cur, body_mask, options.lbfgs, aux_fn=aux_fn,
+                       aux_refresh_fn=aux_refresh_fn)
         reads += res.host_reads
         x_cur = res.x
         losses.append(res.f)

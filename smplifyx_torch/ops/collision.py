@@ -1,0 +1,559 @@
+"""Self-intersection penalty: Morton-block AABB hierarchy + cone field.
+
+Counterpart of `smplifyx_tpu/ops/collision.py`, batched over lanes: every
+function takes vertices [B, V, 3] and every table carries a leading lane
+dimension, where the JAX package runs one lane under `vmap`.
+
+  1. triangles sort by the Morton code of their AABB centroid, giving
+     spatially tight 8-triangle blocks and 64-triangle superblocks;
+  2. candidate pairs flow through a three-level funnel (superblock
+     all-pairs -> block refinement -> triangle refinement with the
+     FilterFaces part test), each level compacted to a fixed budget;
+  3. the surviving pairs are deduplicated to at most T unique triangles,
+     and a differentiable cone penetration field scores each pair,
+     vertex against triangle in both directions.
+
+The broad phase carries no gradient.  The narrow phase fetches the pair
+corners in two levels (vertices -> unique-triangle corner rows -> pair
+sides) with kernel K2 and takes its gradient with kernel K3
+(ops/gather.py); `pair_gather_reference` is the same function in plain
+torch indexing.
+
+Every step is comparisons, compactions and IEEE arithmetic, so on the same
+vertices the pair lists equal the JAX package's.  The TPU-only one-hot
+routings of the JAX module (`_split3f`, `_oh_gather_small`,
+`_gather_rows_mm`, `_scatter_add_mm`) are not carried over: the port
+indexes, as the JAX package does on the CPU.
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from smplifyx_torch.ops.gather import (
+    gather_reference,
+    gather_rows,
+    scatter_add_rows,
+)
+
+_BLK = 8  # triangles per block (broad-phase leaf)
+_SUP = 8  # blocks per superblock
+_BIG = 1e30
+
+
+def load_part_segm(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Load a parts-segmentation pickle {segm: [F], parents: [F]} (the
+    schema of smplx_parts_segm.pkl)."""
+    with open(path, "rb") as f:
+        d = pickle.load(f, encoding="latin1")
+    return np.asarray(d["segm"], np.int32), np.asarray(d["parents"], np.int32)
+
+
+def synthetic_part_segm(num_faces: int, num_parts: int = 27, seed: int = 0):
+    """Random part segmentation with the same structure, for tests and the
+    synthetic slice (equal to the JAX package's for one seed)."""
+    rng = np.random.default_rng(seed)
+    segm = rng.integers(0, num_parts, size=num_faces).astype(np.int32)
+    part_parent = rng.integers(0, num_parts, size=num_parts).astype(np.int32)
+    return segm, part_parent[segm]
+
+
+class CollisionAux(NamedTuple):
+    """A broad-phase result reused across evaluations; every field [B, ...]."""
+
+    tri_corners: torch.Tensor   # [B, T, 3] corner vertex ids of unique triangles
+    pa: torch.Tensor            # [B, P] pair side A: index into tri_corners
+    pb: torch.Tensor            # [B, P] pair side B
+    valid: torch.Tensor         # [B, P] bool
+    order: torch.Tensor         # [B, F] Morton permutation of the faces
+    sorted_pack: torch.Tensor   # [B, F, 3] faces in Morton order
+
+
+def _cone_penalty_pairs(ta, tb, sigma: float, penalize_outside: bool,
+                        point2plane: bool = False) -> torch.Tensor:
+    """Symmetric cone-field penalty per pair: ta, tb [B, P, 3, 3] -> [B, P].
+
+    point2plane takes the raw plane distance of the penetrating vertex,
+    hard-gated to the triangle's circumcircle (gate without gradient),
+    instead of the smooth conical falloff."""
+
+    def one_way(src, pts):
+        c = src.mean(dim=-2)                                  # [B, P, 3]
+        n = torch.linalg.cross(src[..., 1, :] - src[..., 0, :],
+                               src[..., 2, :] - src[..., 0, :], dim=-1)
+        n = n / torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True) + 1e-12)
+        # circumradius proxy: max corner distance from the centroid
+        d2 = torch.sum((src - c[..., None, :]) ** 2, dim=-1)  # [B, P, 3]
+        r = torch.sqrt(torch.amax(d2, dim=-1) + 1e-12)        # [B, P]
+        rel = pts - c[..., None, :]
+        ax = torch.sum(rel * n[..., None, :], dim=-1)         # [B, P, 3]
+        rad_vec = rel - ax[..., None] * n[..., None, :]
+        # eps-safe norm: sqrt has a NaN gradient at exactly 0
+        rad = torch.sqrt(torch.sum(rad_vec * rad_vec, dim=-1) + 1e-12)
+        r_safe = torch.clamp(r[..., None], min=1e-9)
+        if point2plane:
+            inside = (rad <= r_safe).to(ax.dtype).detach()
+            phi = torch.relu(-ax / sigma) * inside
+            if penalize_outside:
+                phi = phi + torch.relu(1.0 - ax / sigma) * inside
+        else:
+            radial = torch.relu(1.0 - rad / r_safe)
+            phi = torch.relu(-ax / sigma) * radial
+            if penalize_outside:
+                phi = phi + torch.relu(1.0 - ax / sigma) * radial
+        return torch.sum(phi * phi, dim=-1)
+
+    return one_way(ta, tb) + one_way(tb, ta)
+
+
+def _interleave3(x: torch.Tensor) -> torch.Tensor:
+    """Spread each of the low 10 bits of x to every 3rd bit (Morton).
+    int64 with the JAX package's uint32 masks: for x < 1024 no bit leaves
+    the low 32, so the codes are equal."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _compact(flat: torch.Tensor, size: int):
+    """Per lane, the indices of the first `size` True entries of flat
+    [B, N] in order, and a validity mask.  Keys are distinct (True entries
+    by N - idx, False by -idx), so the top-k order is unique."""
+    N = flat.shape[-1]
+    idx = torch.arange(N, device=flat.device)
+    key = torch.where(flat, N - idx, -idx)
+    vals, pos = torch.topk(key, size, dim=-1, sorted=True)
+    valid = vals > 0
+    return torch.where(valid, pos, 0), valid
+
+
+def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Per-lane row fetch: table [B, N, ...], ids [B, R] -> [B, R, ...]."""
+    lanes = torch.arange(table.shape[0], device=table.device)[:, None]
+    return table[lanes, ids]
+
+
+def _ea(v):
+    """A-side expansion [..., 8] -> [..., 64]: col i*8+j -> v[..., i]."""
+    return torch.repeat_interleave(v, _SUP, dim=-1)
+
+
+def _eb(v):
+    """B-side expansion [..., 8] -> [..., 64]: col i*8+j -> v[..., j]."""
+    return v.repeat((1,) * (v.dim() - 1) + (_SUP,))
+
+
+class _PairGather(torch.autograd.Function):
+    """Two-level narrow-phase corner fetch, forward on K2 and VJP on K3.
+
+    vertices [B, V, 3], tri_corners [B, T, 3], pa/pb [B, P] ->
+    (ta, tb) [B, P, 3, 3].  Forward: level 1 gathers the 3T corner
+    positions from the vertex table (C = 3), level 2 the pair sides from
+    the [T, 9] corner rows (C = 9).  Backward: the same levels transposed,
+    level 2 first.  No gradient flows to the ids."""
+
+    @staticmethod
+    def forward(ctx, vertices, tri_corners, pa, pb):
+        B, T, _ = tri_corners.shape
+        P = pa.shape[1]
+        cids = tri_corners.reshape(B, 3 * T)
+        pids = torch.cat([pa, pb], dim=1)
+        c9 = gather_rows(vertices, cids).reshape(B, T, 9)
+        rows = gather_rows(c9, pids).reshape(B, 2, P, 3, 3)
+        ctx.save_for_backward(cids, pids)
+        ctx.num_verts, ctx.num_tris = vertices.shape[1], T
+        return rows[:, 0], rows[:, 1]
+
+    @staticmethod
+    def backward(ctx, gta, gtb):
+        cids, pids = ctx.saved_tensors
+        B = cids.shape[0]
+        gp = torch.cat([gta.reshape(B, -1, 9), gtb.reshape(B, -1, 9)], dim=1)
+        gc9 = scatter_add_rows(pids, gp.contiguous(), ctx.num_tris)
+        dv = scatter_add_rows(cids, gc9.reshape(B, -1, 3), ctx.num_verts)
+        return dv, None, None, None
+
+
+def pair_gather(vertices, tri_corners, pa, pb):
+    """(ta, tb) [B, P, 3, 3]: the pair sides' corner positions through K2,
+    differentiable in vertices through K3."""
+    return _PairGather.apply(vertices, tri_corners, pa, pb)
+
+
+def pair_gather_reference(vertices, tri_corners, pa, pb):
+    """Plain version of `pair_gather`: the same two levels by indexing
+    (autograd's own index backward gives the VJP)."""
+    B, T, _ = tri_corners.shape
+    P = pa.shape[1]
+    c9 = gather_reference(vertices, tri_corners.reshape(B, 3 * T)).reshape(B, T, 9)
+    rows = gather_reference(c9, torch.cat([pa, pb], dim=1)).reshape(B, 2, P, 3, 3)
+    return rows[:, 0], rows[:, 1]
+
+
+class CollisionFn:
+    """vertices [B, V, 3] -> penetration penalty [B].
+
+    `build(vertices)` runs the broad phase into a `CollisionAux`;
+    `build_refresh(vertices, aux)` re-runs the funnel under the aux's
+    Morton order; `apply(vertices, aux)` scores a fixed pair list, with an
+    AABB recheck at the current vertices so separated pairs score zero;
+    calling the object is `apply(vertices, build(vertices))`, the exact
+    per-evaluation path.  `candidate_pairs` returns face-id pairs and
+    `saturation` the survivors against the budget at every level.
+    Built by `make_collision_fn`."""
+
+    def __init__(self, faces, segm, parents, ign_part_pairs, max_pairs,
+                 max_sup_pairs, max_hit_sup_pairs, max_hit_pairs, max_tris,
+                 sigma, penalize_outside, point2plane):
+        self.ign = [tuple(int(v) for v in str(e).split(","))
+                    for e in ign_part_pairs]
+        self.faces = torch.as_tensor(faces).to(torch.int64)
+        self.device = self.faces.device
+        F = self.faces.shape[0]
+        self.F = F
+        self.nb = -(-F // _BLK)
+        self.Fp = self.nb * _BLK
+        self.ns = -(-self.nb // _SUP)
+        self.nbp = self.ns * _SUP
+        self.Ps = min(max_sup_pairs, self.ns * self.ns)
+        self.Phs = min(max_hit_sup_pairs, self.Ps)
+        self.Ph = min(max_hit_pairs, self.Phs * _SUP * _SUP)
+        self.P = min(max_pairs, self.Ph * _BLK * _BLK)
+        self.T = min(max_tris, 2 * self.P)
+        self.sigma = sigma
+        self.penalize_outside = penalize_outside
+        self.point2plane = point2plane
+        pad = self.Fp - F
+        if segm is not None:
+            # pad ids: distinct negatives so padding never matches anything
+            # (f32 as in the JAX package; part ids are small, f32-exact)
+            self.segm = torch.as_tensor(np.concatenate(
+                [np.asarray(segm, np.float32), np.full(pad, -1, np.float32)]),
+                device=self.device)
+            self.parents = torch.as_tensor(np.concatenate(
+                [np.asarray(parents, np.float32), np.full(pad, -3, np.float32)]),
+                device=self.device)
+        else:
+            self.segm = self.parents = None
+
+    # ---- broad phase ---------------------------------------------------
+
+    def morton_order(self, vertices: torch.Tensor) -> torch.Tensor:
+        """Morton rank of each triangle's AABB centroid -> permutation
+        [B, F] (stable sort: equal codes keep face order, as jnp.argsort)."""
+        tris = vertices.detach()[:, self.faces]             # [B, F, 3, 3]
+        cent = 0.5 * (tris.amin(dim=2) + tris.amax(dim=2))  # [B, F, 3]
+        lo = cent.amin(dim=1, keepdim=True)
+        span = torch.clamp(cent.amax(dim=1, keepdim=True) - lo, min=1e-9)
+        qc = torch.clamp((cent - lo) / span * 1023.0, 0.0, 1023.0)
+        qi = qc.to(torch.int64)
+        code = (_interleave3(qi[..., 0]) | (_interleave3(qi[..., 1]) << 1)
+                | (_interleave3(qi[..., 2]) << 2))
+        return torch.argsort(code, dim=-1, stable=True)
+
+    def _sorted_tables(self, vertices, order):
+        """Sorted, padded funnel inputs: amin_s/amax_s [B, Fp, 3] and
+        segm_sp/parents_sp [B, Fp] at the given order."""
+        B = vertices.shape[0]
+        pad = self.Fp - self.F
+        tris = vertices.detach()[:, self.faces]
+        cols = [tris.amin(dim=2), tris.amax(dim=2)]
+        if self.segm is not None:
+            cols += [self.segm[:self.F, None].expand(B, self.F, 1),
+                     self.parents[:self.F, None].expand(B, self.F, 1)]
+        packed = _rows(torch.cat(cols, dim=-1), order)      # [B, F, 6 or 8]
+        big = packed.new_full((B, pad, 3), _BIG)
+        amin_s = torch.cat([packed[..., 0:3], big], dim=1)
+        amax_s = torch.cat([packed[..., 3:6], -big], dim=1)
+        segm_sp = parents_sp = None
+        if self.segm is not None:
+            segm_sp = torch.cat(
+                [packed[..., 6], self.segm[self.F:].expand(B, pad)], dim=1)
+            parents_sp = torch.cat(
+                [packed[..., 7], self.parents[self.F:].expand(B, pad)], dim=1)
+        return amin_s, amax_s, segm_sp, parents_sp
+
+    def _rel_drop(self, sa, pa, sb, pb):
+        drop = (sa == sb) | (pa == sb) | (pb == sa)
+        for p_, q_ in self.ign:
+            drop = drop | ((sa == p_) & (sb == q_)) | ((sa == q_) & (sb == p_))
+        return drop
+
+    def _funnel(self, amin_s, amax_s, segm_sp, parents_sp):
+        """Three-level compaction funnel over sorted, padded tables ->
+        ((ra, rb) [B, P] triangle ranks, valid [B, P]), counts per level
+        ({level: ([B] survivors, budget)})."""
+        B = amin_s.shape[0]
+        nb, ns, nbp = self.nb, self.ns, self.nbp
+        dev = amin_s.device
+        spad = nbp - nb
+        with_parts = segm_sp is not None
+        bmin = amin_s.reshape(B, nb, _BLK, 3).amin(dim=2)      # [B, nb, 3]
+        bmax = amax_s.reshape(B, nb, _BLK, 3).amax(dim=2)
+        big = bmin.new_full((B, spad, 3), _BIG)
+        smin = torch.cat([bmin, big], 1).reshape(B, ns, _SUP, 3).amin(dim=2)
+        smax = torch.cat([bmax, -big], 1).reshape(B, ns, _SUP, 3).amax(dim=2)
+
+        if with_parts:
+            sgb = segm_sp.reshape(B, nb, _BLK)
+            prb = parents_sp.reshape(B, nb, _BLK)
+            # uniform = one part and one parent across the block
+            buni = ((sgb == sgb[..., :1]).all(-1)
+                    & (prb == prb[..., :1]).all(-1))          # [B, nb]
+            bseg, bpar = sgb[..., 0], prb[..., 0]
+
+        # ---- level 0: superblock all-pairs
+        iu = torch.arange(ns, device=dev)
+        ms = (iu[:, None] <= iu[None, :]).expand(B, ns, ns)
+        for k in range(3):
+            ms = ms & (smin[:, :, None, k] <= smax[:, None, :, k]) \
+                & (smax[:, :, None, k] >= smin[:, None, :, k])
+        posS, validS = _compact(ms.reshape(B, -1), self.Ps)
+        si, sj = posS // ns, posS % ns
+
+        # ---- level 1: 8x8 block refinement on packed [B, ns, C*8] rows
+        def sup_rows(col):                                  # [B, nb] -> [B, ns, 8]
+            return torch.cat([col, col[:, -1:].expand(B, spad)], 1) \
+                .reshape(B, ns, _SUP)
+
+        sup_cols = [sup_rows(bmin[..., k]) for k in range(3)] \
+            + [sup_rows(bmax[..., k]) for k in range(3)]
+        if with_parts:
+            sup_cols += [sup_rows(buni.to(bmin.dtype)), sup_rows(bseg),
+                         sup_rows(bpar)]
+        sup_tab = torch.cat(sup_cols, dim=-1)               # [B, ns, C*8]
+        ii = torch.arange(64, device=dev) // 8
+        jj = torch.arange(64, device=dev) % 8
+
+        def overlap(m, A_, B_):
+            for k in range(3):
+                m = m & (_eb(B_[..., k * 8:(k + 1) * 8])
+                         <= _ea(A_[..., (3 + k) * 8:(4 + k) * 8])) \
+                    & (_eb(B_[..., (3 + k) * 8:(4 + k) * 8])
+                       >= _ea(A_[..., k * 8:(k + 1) * 8]))
+            return m
+
+        def blk_mask(si_, sj_, valid_):
+            """[B, N] superblock pairs -> [B, N, 64] surviving block pairs
+            (AABB overlap, rank order, conservative uniform-part filter)."""
+            ba_ = si_[..., None] * _SUP + ii
+            bb_ = sj_[..., None] * _SUP + jj
+            m = valid_[..., None] & (ba_ <= bb_) & (ba_ < nb) & (bb_ < nb)
+            A_, B_ = _rows(sup_tab, si_), _rows(sup_tab, sj_)
+            m = overlap(m, A_, B_)
+            if with_parts:
+                ua = _ea(A_[..., 48:56] > 0.5)
+                ub = _eb(B_[..., 48:56] > 0.5)
+                m = m & ~((ua & ub) & self._rel_drop(
+                    _ea(A_[..., 56:64]), _ea(A_[..., 64:72]),
+                    _eb(B_[..., 56:64]), _eb(B_[..., 64:72])))
+            return m
+
+        mb = blk_mask(si, sj, validS)                       # [B, Ps, 64]
+        hit_s = mb.any(dim=-1)
+        posHS, validHS = _compact(hit_s, self.Phs)
+        si_h = torch.gather(si, 1, posHS)
+        sj_h = torch.gather(sj, 1, posHS)
+        mb_h = blk_mask(si_h, sj_h, validHS)                # [B, Phs, 64]
+
+        # ---- level 2: triangle refinement on packed [B, nb, Cb*8] rows
+        blk_cols = [amin_s[..., k].reshape(B, nb, _BLK) for k in range(3)] \
+            + [amax_s[..., k].reshape(B, nb, _BLK) for k in range(3)]
+        if with_parts:
+            blk_cols += [sgb, prb]
+        blk_tab = torch.cat(blk_cols, dim=-1)               # [B, nb, Cb*8]
+        Cb = blk_tab.shape[-1] // _BLK
+        empty_row = [_BIG] * 3 + [-_BIG] * 3 + ([-1.0, -3.0] if with_parts else [])
+        empty = torch.tensor(empty_row, dtype=blk_tab.dtype, device=dev) \
+            .repeat_interleave(_BLK)
+        blk_tab8 = torch.cat(
+            [blk_tab, empty.expand(B, nbp - nb, Cb * _BLK)], dim=1
+        ).reshape(B, ns, _SUP * Cb * _BLK)
+
+        def tri_mask(bi_, bj_, valid_):
+            """[B, N] block pairs -> [B, N, 64] surviving triangle pairs
+            (AABB overlap, rank order, exact FilterFaces part test)."""
+            ra_ = bi_[..., None] * _BLK + ii
+            rb_ = bj_[..., None] * _BLK + jj
+            m = valid_[..., None] & (ra_ < rb_)
+            A_, B_ = _rows(blk_tab, bi_), _rows(blk_tab, bj_)
+            m = overlap(m, A_, B_)
+            if with_parts:
+                m = m & ~self._rel_drop(
+                    _ea(A_[..., 48:56]), _ea(A_[..., 56:64]),
+                    _eb(B_[..., 48:56]), _eb(B_[..., 56:64]))
+            return m
+
+        # ---- hit detection at superblock-pair granularity: which block
+        # pairs carry >= 1 surviving triangle pair ([B, Phs, 8j, 8ti, 8tj]
+        # slabs, one per A-side block)
+        Phs = self.Phs
+        A8 = _rows(blk_tab8, si_h).reshape(B, Phs, _SUP, Cb, _BLK)
+        B8 = _rows(blk_tab8, sj_h).reshape(B, Phs, _SUP, Cb, _BLK)
+        ti_r = torch.arange(_BLK, device=dev)
+        j_r = torch.arange(_SUP, device=dev)
+        rb = (((sj_h[..., None] * _SUP + j_r) * _BLK)[..., None, None]
+              + ti_r[None, None, :])                        # [B, Phs, 8j, 1, 8tj]
+        Bk = [B8[:, :, :, k, None, :] for k in range(Cb)]   # [B, Phs, 8j, 1, 8tj]
+        hit_cols = []
+        for i in range(_SUP):
+            Ai = A8[:, :, i]                                # [B, Phs, Cb, 8ti]
+            m = mb_h[:, :, i * _SUP:(i + 1) * _SUP, None, None]
+            ra = (((si_h * _SUP + i) * _BLK)[..., None, None, None]
+                  + ti_r[:, None])                          # [B, Phs, 1, 8ti, 1]
+            m = m & (ra < rb)
+            for k in range(3):
+                m = m & (Bk[k] <= Ai[:, :, None, 3 + k, :, None]) \
+                    & (Bk[3 + k] >= Ai[:, :, None, k, :, None])
+            if with_parts:
+                m = m & ~self._rel_drop(
+                    Ai[:, :, None, Cb - 2, :, None], Ai[:, :, None, Cb - 1, :, None],
+                    Bk[Cb - 2], Bk[Cb - 1])
+            hit_cols.append(m.any(dim=(3, 4)))             # [B, Phs, 8j]
+        hit_bp = torch.cat(hit_cols, dim=-1)                # [B, Phs, 64]
+
+        # ---- final compaction: hit-carrying rows, then block pairs, then
+        # triangle pairs
+        Phr = min(self.Ph, Phs)
+        rowH, validRH = _compact(hit_bp.any(dim=-1), Phr)
+        hit_rows = _rows(hit_bp, rowH) & validRH[..., None]  # [B, Phr, 64]
+        posH, validH = _compact(hit_rows.reshape(B, -1), self.Ph)
+        pih = torch.gather(rowH, 1, posH // 64)             # row of hit_bp
+        wbh = posH % 64
+        bi_h = torch.clamp(torch.gather(si_h, 1, pih) * _SUP + wbh // _SUP,
+                           max=nb - 1)
+        bj_h = torch.clamp(torch.gather(sj_h, 1, pih) * _SUP + wbh % _SUP,
+                           max=nb - 1)
+        mt_h = tri_mask(bi_h, bj_h, validH)                 # [B, Ph, 64]
+        posT, validT = _compact(mt_h.reshape(B, -1), self.P)
+        th, wt = posT // 64, posT % 64
+        ra_f = torch.gather(bi_h, 1, th) * _BLK + wt // _BLK
+        rb_f = torch.gather(bj_h, 1, th) * _BLK + wt % _BLK
+        counts = {
+            "superblock": (ms.sum(dim=(1, 2)), self.Ps),
+            "hit_superblock": (hit_s.sum(dim=1), Phs),
+            "hit": (hit_bp.sum(dim=(1, 2)), self.Ph),
+            "final": (mt_h.sum(dim=(1, 2)), self.P),
+        }
+        return (ra_f, rb_f, validT), counts
+
+    def _sorted_pack_of(self, order):
+        return self.faces[order]                            # [B, F, 3]
+
+    def _resolve_ranks(self, ra, rb, valid, order, sorted_pack):
+        """Deduplicate the 2P surviving ranks to <= T unique triangles,
+        resolve their corner ids once, and store each pair side as an
+        index into that list.  Pairs whose triangle overflows T drop
+        (valid &= matched).  -> (CollisionAux, distinct-triangle count)."""
+        F, Fp, T = self.F, self.Fp, self.T
+        ra_v = torch.where(valid, ra, Fp)                   # sentinel sorts last
+        rb_v = torch.where(valid, rb, Fp)
+        s = torch.sort(torch.cat([ra_v, rb_v], dim=1), dim=1).values
+        is_new = torch.cat(
+            [torch.ones_like(s[:, :1], dtype=torch.bool), s[:, 1:] != s[:, :-1]],
+            dim=1) & (s < Fp)
+        pos, uvalid = _compact(is_new, T)
+        uniq = torch.where(uvalid, torch.gather(s, 1, pos), F - 1)   # [B, T]
+        tri_corners = _rows(sorted_pack, torch.clamp(uniq, max=F - 1))
+        # Valid unique ranks are ascending, distinct and first; padding
+        # above every rank keeps the row sorted for searchsorted, which
+        # then finds the one equal entry (argmax of the equality in JAX).
+        table = torch.where(uvalid, uniq, Fp + 1)
+
+        def side_index(r):
+            idx = torch.clamp(torch.searchsorted(table, r), max=T - 1)
+            hit = torch.gather(table, 1, idx) == r
+            return torch.where(hit, idx, 0), hit
+
+        pa, ma = side_index(ra)
+        pb, mb = side_index(rb)
+        aux = CollisionAux(tri_corners, pa, pb, valid & ma & mb, order,
+                           sorted_pack)
+        return aux, is_new.sum(dim=1)
+
+    @torch.no_grad()
+    def candidate_pairs(self, vertices):
+        """-> (idx_a [B, P], idx_b [B, P] face ids, valid [B, P])."""
+        order = self.morton_order(vertices)
+        (ra, rb, valid), _ = self._funnel(*self._sorted_tables(vertices, order))
+        P = ra.shape[1]
+        oo = torch.gather(order, 1, torch.clamp(torch.cat([ra, rb], 1),
+                                                max=self.F - 1))
+        return oo[:, :P], oo[:, P:], valid
+
+    @torch.no_grad()
+    def saturation(self, vertices) -> dict:
+        """Survivors against budgets at every level, {level: ([B], budget)},
+        'narrow_tris' included.  A count equal to its budget means that
+        level drops pairs for this pose."""
+        order = self.morton_order(vertices)
+        (ra, rb, valid), counts = self._funnel(*self._sorted_tables(vertices, order))
+        _, n_tris = self._resolve_ranks(ra, rb, valid, order,
+                                        self._sorted_pack_of(order))
+        return {**counts, "narrow_tris": (n_tris, self.T)}
+
+    @torch.no_grad()
+    def build(self, vertices) -> CollisionAux:
+        """Broad phase as a reusable aux, Morton order included."""
+        order = self.morton_order(vertices)
+        (ra, rb, valid), _ = self._funnel(*self._sorted_tables(vertices, order))
+        return self._resolve_ranks(ra, rb, valid, order,
+                                   self._sorted_pack_of(order))[0]
+
+    @torch.no_grad()
+    def build_refresh(self, vertices, aux: CollisionAux) -> CollisionAux:
+        """Broad phase under the previous aux's Morton order (no sort).
+        The superblock level is all-pairs, so the result is exact up to the
+        budgets for any order; a stale order only loosens the groupings."""
+        (ra, rb, valid), _ = self._funnel(*self._sorted_tables(vertices, aux.order))
+        return self._resolve_ranks(ra, rb, valid, aux.order, aux.sorted_pack)[0]
+
+    # ---- narrow phase --------------------------------------------------
+
+    def penalty(self, ta, tb, valid) -> torch.Tensor:
+        """Cone penalty [B] of the pairs (ta, tb) [B, P, 3, 3] that are
+        valid and whose AABBs overlap at these (detached) corners."""
+        ta_s, tb_s = ta.detach(), tb.detach()
+        live = valid
+        for k in range(3):
+            live = live & (tb_s[..., k].amin(-1) <= ta_s[..., k].amax(-1)) \
+                & (tb_s[..., k].amax(-1) >= ta_s[..., k].amin(-1))
+        pen = _cone_penalty_pairs(ta, tb, self.sigma, self.penalize_outside,
+                                  point2plane=self.point2plane)
+        return torch.sum(pen * live.to(pen.dtype), dim=-1)
+
+    def apply(self, vertices, aux: CollisionAux) -> torch.Tensor:
+        """Penalty [B] on a fixed pair list; differentiable in vertices."""
+        ta, tb = pair_gather(vertices, aux.tri_corners, aux.pa, aux.pb)
+        return self.penalty(ta, tb, aux.valid)
+
+    def __call__(self, vertices) -> torch.Tensor:
+        return self.apply(vertices, self.build(vertices))
+
+
+def make_collision_fn(
+    faces,                                  # [F, 3] int tensor; its device is used
+    segm: Optional[np.ndarray] = None,      # [F] part ids
+    parents: Optional[np.ndarray] = None,   # [F] parent part ids
+    ign_part_pairs: Sequence[str] = (),     # ["9,16", ...] reference format
+    max_pairs: int = 4096,
+    max_sup_pairs: int = 8192,
+    max_hit_sup_pairs: int = 4096,
+    max_hit_pairs: int = 1024,
+    max_tris: int = 2048,
+    sigma: float = 1e-4,
+    penalize_outside: bool = True,
+    point2plane: bool = False,
+) -> CollisionFn:
+    """The collision term for a mesh topology, with the JAX package's
+    budgets (its deprecated, ignored `window` and `max_block_pairs` are
+    left out)."""
+    return CollisionFn(faces, segm, parents, ign_part_pairs, max_pairs,
+                       max_sup_pairs, max_hit_sup_pairs, max_hit_pairs,
+                       max_tris, sigma, penalize_outside, point2plane)

@@ -17,76 +17,24 @@ The backward is the JAX package's `_bwd` in torch ops (rebuild T, then
 dA = W^T dT and dv = R^T g); weights get no gradient, they are model data.
 
 The kernel is built with nvcc into `build/` at the repository root at
-first use and loaded with ctypes.  `lbs_apply.launches` counts launches.
+first use and loaded with ctypes (`ops/nvcc.py`).  `lbs_apply.launches`
+counts launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-_REPO = Path(__file__).resolve().parents[2]
-_SOURCE = _REPO / "smplifyx_torch" / "csrc" / "lbs.cu"
-_BUILD_DIR = _REPO / "build"
-_LIBRARY = _BUILD_DIR / "liblbs.so"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from smplifyx_torch.ops import nvcc
+
 MAX_J = 64  # the kernel sizes its shared memory for J <= 64
-
-_lib = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    return str(path) if path.exists() else "nvcc"
-
-
-def build_command() -> list:
-    """The nvcc command that builds the kernel library (for logs/timing)."""
-    return [_nvcc(), *_NVCC_FLAGS, "-o", str(_LIBRARY), str(_SOURCE)]
-
-
-def build(force: bool = False) -> tuple[float, str]:
-    """Compile csrc/lbs.cu into build/liblbs.so; returns the seconds taken
-    and ptxas's register/spill report ((0.0, "") when an up-to-date library
-    exists and force is False)."""
-    if (not force and _LIBRARY.exists()
-            and _LIBRARY.stat().st_mtime >= _SOURCE.stat().st_mtime):
-        return 0.0, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _LIBRARY.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = build_command()
-    cmd[cmd.index("-o") + 1] = str(tmp)
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {_SOURCE}:\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, _LIBRARY)
-    seconds = time.perf_counter() - t0
-    report = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-              if "registers" in ln or "spill" in ln]
-    return seconds, " | ".join(report)
 
 
 def _load():
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(_LIBRARY))
-        lib.lbs_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        lib.lbs_forward.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return nvcc.load("lbs", {"lbs_forward": [ctypes.c_void_p] * 4
+                             + [ctypes.c_int] * 3 + [ctypes.c_void_p]})
 
 
 def lbs_reference(weights: torch.Tensor, A: torch.Tensor,

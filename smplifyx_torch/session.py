@@ -23,6 +23,7 @@ from smplifyx_torch.models.joint_mapping import (
     SHOULDER_IDXS_BY_FORMAT,
     model_to_annotation,
 )
+from smplifyx_torch.ops.collision import load_part_segm, make_collision_fn
 from smplifyx_torch.priors.priors import load_gmm_pickle
 from smplifyx_torch.utils.config import Config
 from smplifyx_torch.utils.device import resolve_device
@@ -45,6 +46,7 @@ class FitSession:
     coll_stage_mask: Optional[tuple]
     get_model: Callable[[str], object]
     device: torch.device
+    collision_fn: object        # CollisionFn, or None without interpenetration
 
     def fit(self, model, joints_model, frames, x0) -> FitResult:
         """Run the staged fit on a prepared batch."""
@@ -54,7 +56,7 @@ class FitSession:
             edge_idxs=self.edge_idxs, joints_model=joints_model,
             coll_stage_mask=self.coll_stage_mask,
             lhand_gmm=self.lhand_gmm, rhand_gmm=self.rhand_gmm,
-            device=self.device,
+            collision_fn=self.collision_fn, device=self.device,
         )
 
 
@@ -71,11 +73,6 @@ def build_fit_session(cfg: Config, model=None, device="cuda") -> FitSession:
     if cfg.camera_type != "persp":
         raise NotImplementedError(
             f"camera_type={cfg.camera_type!r}: only 'persp' is supported")
-    if cfg.interpenetration:
-        raise NotImplementedError(
-            "interpenetration: true needs the collision term, which is not "
-            "ported yet (ROADMAP queue 1 item 7); pass interpenetration=False"
-        )
     if cfg.use_vposer:
         raise NotImplementedError(
             "use_vposer: true needs VPoser, which is not ported yet "
@@ -130,7 +127,25 @@ def build_fit_session(cfg: Config, model=None, device="cuda") -> FitSession:
             )
         return prior
 
-    coll_stage_mask = None   # collision configs are refused above
+    collision_fn = coll_stage_mask = None
+    if cfg.interpenetration:
+        segm = parents = None
+        if cfg.part_segm_fn:
+            segm, parents = load_part_segm(osp.expandvars(cfg.part_segm_fn))
+        # Built once from the given or the neutral model's faces: the
+        # gendered SMPL-X models share one mesh topology.  The narrow-phase
+        # budget honours at least the reference's max_collisions.
+        faces = (model if model is not None else get_model("neutral")).faces
+        collision_fn = make_collision_fn(
+            faces, segm=segm, parents=parents,
+            ign_part_pairs=cfg.ign_part_pairs,
+            max_pairs=max(cfg.max_coll_pairs, cfg.max_collisions),
+            sigma=cfg.df_cone_height,
+            penalize_outside=cfg.penalize_outside,
+            point2plane=cfg.point2plane,
+        )
+        weights = cfg.coll_loss_weights or [0.0] * cfg.num_stages
+        coll_stage_mask = tuple(float(v) > 0 for v in weights)
     schedule = build_stage_schedule(
         cfg.body_pose_prior_weights, cfg.shape_weights, cfg.expr_weights,
         cfg.hand_pose_prior_weights, cfg.jaw_pose_prior_weights,
@@ -145,6 +160,7 @@ def build_fit_session(cfg: Config, model=None, device="cuda") -> FitSession:
             max_iters=cfg.resolved_lbfgs_iters, history=cfg.history_size,
             max_ls=cfg.resolved_max_line_search, lr=cfg.lr,
             ftol=cfg.ftol, gtol=cfg.gtol, ls_mode=cfg.resolved_ls_mode,
+            aux_every=cfg.resolved_coll_broad_every,
             max_evals=cfg.resolved_max_evals, **soft_kw,
         ),
         # The camera stage stays on strong Wolfe in both profiles; the fast
@@ -167,4 +183,5 @@ def build_fit_session(cfg: Config, model=None, device="cuda") -> FitSession:
         gmm=gmm, lhand_gmm=hand_gmm(cfg.left_hand_prior_type),
         rhand_gmm=hand_gmm(cfg.right_hand_prior_type),
         coll_stage_mask=coll_stage_mask, get_model=get_model, device=dev,
+        collision_fn=collision_fn,
     )

@@ -7,8 +7,10 @@ B=128 frames, V=10475) once to warm up, once timed without the profiler,
 and once under torch.profiler.  Prints one JSON line: the unprofiled and
 profiled wall seconds, device-busy seconds (the sum of CUDA kernel times
 in the profiled fit), the device's idle share over each of the two walls,
-kernel launches per fit, host reads per fit, and the kernels that take the
-most device time; writes the profiler's table to <out>/profile_fit.txt.
+kernel launches per fit, host reads per fit, the device time and share of
+each hand-written kernel (K1 `lbs_kernel`, K2 `gather_kernel`, K3
+`segment_sum_kernel`), and the kernels that take the most device time;
+writes the profiler's table to <out>/profile_fit.txt.
 
 The profiler's host overhead stretches the profiled wall while the kernels
 themselves keep their times, so the idle share of the fit as users run it
@@ -55,6 +57,13 @@ def main(argv=None) -> int:
     busy = sum(e.self_device_time_total for e in events) / 1e6
     launches = sum(e.count for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    ours = {}
+    for label, symbol in (("lbs", "lbs_kernel"), ("gather", "gather_kernel"),
+                          ("scatter", "segment_sum_kernel")):
+        hits = [e for e in events if symbol in e.key]
+        ms = sum(e.self_device_time_total for e in hits) / 1e3
+        ours[label] = {"count": sum(e.count for e in hits), "device_ms": ms,
+                       "share": ms / 1e3 / busy if busy else None}
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "profile_fit.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
@@ -72,6 +81,7 @@ def main(argv=None) -> int:
         "kernel_launches": launches, "host_reads": res.host_reads,
         "max_lane_evals": evals,
         "launches_per_eval": launches / evals,
+        "hand_written_kernels": ours,
         "top_kernels": [{"name": e.key[:90], "count": e.count,
                          "device_ms": e.self_device_time_total / 1e3}
                         for e in top],

@@ -1,0 +1,118 @@
+"""Run-to-run spread of the collision-on fit on the card, and its cause.
+
+    python -m smplifyx_torch.tools.rerun_spread [--batch 128]
+
+Fits the slice (`problem.build_slice`: the collision-on combined preset,
+V=10475) twice on the card with each of three narrow phases, and prints one
+JSON line per narrow phase: the per-lane relative difference of the two
+runs' final losses (quantiles, lanes over 5%), whether the two runs ended
+bit-equal, and the messages of any operation without a deterministic
+implementation.
+
+  * ``kernel``: the port's pair gather (K2 forward, K3 backward, K3 a
+    segmented sum over sorted ids);
+  * ``index_add``: K2 forward, backward by `index_add_`, which adds with
+    float atomics on the card (the summation of an atomic K3);
+  * ``index_add_deterministic``: the same under
+    `torch.use_deterministic_algorithms(True)`, where `index_add_` takes
+    its deterministic path.
+
+If only ``index_add`` spreads, the atomics' summation order is the cause.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import warnings
+
+# cuBLAS needs a fixed workspace to be deterministic; it is read when cuBLAS
+# starts, so it is set before torch touches the card.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
+
+from smplifyx_torch.ops.collision import CollisionFn, _PairGather  # noqa: E402
+from smplifyx_torch.ops.gather import scatter_add_reference  # noqa: E402
+from smplifyx_torch.problem import build_slice  # noqa: E402
+
+
+class _IndexAddPairGather(_PairGather):
+    """The pair gather of ops/collision.py (K2 forward) with `index_add_`
+    as its VJP."""
+
+    @staticmethod
+    def backward(ctx, gta, gtb):
+        cids, pids = ctx.saved_tensors
+        B = cids.shape[0]
+        gp = torch.cat([gta.reshape(B, -1, 9), gtb.reshape(B, -1, 9)], dim=1)
+        gc9 = scatter_add_reference(pids, gp.contiguous(), ctx.num_tris)
+        dv = scatter_add_reference(cids, gc9.reshape(B, -1, 3), ctx.num_verts)
+        return dv, None, None, None
+
+
+class IndexAddCollision:
+    """A collision term whose narrow-phase VJP is `index_add_`."""
+
+    def __init__(self, fn: CollisionFn):
+        self.fn = fn
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def apply(self, vertices, aux):
+        ta, tb = _IndexAddPairGather.apply(vertices, aux.tri_corners, aux.pa,
+                                           aux.pb)
+        return self.fn.penalty(ta, tb, aux.valid)
+
+
+def spread(session, model, jm, frames, x0):
+    """Two fits of the same inputs -> (per-lane relative loss difference,
+    bit-equal x)."""
+    a = session.fit(model, jm, frames, x0)
+    b = session.fit(model, jm, frames, x0)
+    torch.cuda.synchronize()
+    rel = (a.loss - b.loss).abs() / b.loss.abs()
+    return rel, bool(torch.equal(a.x, b.x))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=128)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("rerun_spread measures the card: no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    session, model, jm, frames, x0 = build_slice(args.batch)
+    kernel_fn = session.collision_fn
+    for name, fn, deterministic in (
+            ("kernel", kernel_fn, False),
+            ("index_add", IndexAddCollision(kernel_fn), False),
+            ("index_add_deterministic", IndexAddCollision(kernel_fn), True)):
+        session.collision_fn = fn
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rel, bit_equal = spread(session, model, jm, frames, x0)
+        torch.use_deterministic_algorithms(False)
+        print(json.dumps({
+            "narrow_phase": name, "card": smi, "B": int(x0.shape[0]),
+            "V": int(model.lbs_weights.shape[0]),
+            "deterministic_algorithms": deterministic,
+            "bit_equal": bit_equal,
+            "rel_diff_quantiles": {q: float(rel.quantile(float(q)))
+                                   for q in ("0.5", "0.9", "1.0")},
+            "lanes_over_5pct": int((rel > 0.05).sum()),
+            "nondeterministic_ops": sorted({str(w.message)[:160]
+                                            for w in caught}),
+        }), flush=True)
+    session.collision_fn = kernel_fn
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

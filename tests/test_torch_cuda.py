@@ -9,6 +9,8 @@ file imports no JAX, so it also runs where JAX is not installed:
 import pytest
 import torch
 
+from smplifyx_torch.ops import collision as tc
+from smplifyx_torch.ops import gather as tg
 from smplifyx_torch.ops import lbs as tlbs
 
 pytestmark = pytest.mark.cuda
@@ -59,3 +61,92 @@ def test_lbs_kernel_refuses_mixed_devices_and_wide_j(card):
     W, A, v = _inputs(2, 50, 65, card, seed=0)
     with pytest.raises(ValueError, match="J <= 64"):
         tlbs.lbs_apply(W, A, v)
+
+
+def _rows(B, N, R, C, dev, seed, id_rows=None):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn(B, N, C, device=dev, generator=gen)
+    ids = torch.randint(0, id_rows or N, (B, R), device=dev, generator=gen)
+    values = torch.randn(B, R, C, device=dev, generator=gen)
+    return table, ids, values
+
+
+@pytest.mark.parametrize("B,N,R,C", [(256, 10475, 6144, 3), (256, 2048, 8192, 9),
+                                     (3, 777, 1001, 3), (3, 129, 333, 9)])
+def test_gather_kernel_is_bit_exact(card, B, N, R, C):
+    table, ids, _ = _rows(B, N, R, C, card, seed=N)
+    before = tg.gather_rows.launches
+    out = tg.gather_rows(table, ids)
+    ref = tg.gather_reference(table, ids)
+    torch.cuda.synchronize()
+    assert tg.gather_rows.launches == before + 1
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("B,N,R,C,id_rows", [
+    (256, 2048, 8192, 9, None), (256, 10475, 6144, 3, None),
+    (3, 777, 1001, 3, None), (4, 100, 3000, 3, 5), (4, 64, 3000, 9, 5)])
+def test_scatter_kernel_matches_plain_version(card, B, N, R, C, id_rows):
+    _, ids, values = _rows(B, N, R, C, card, seed=R, id_rows=id_rows)
+    before = tg.scatter_add_rows.launches
+    out = tg.scatter_add_rows(ids, values, N)
+    ref = tg.scatter_add_reference(ids, values, N)
+    torch.cuda.synchronize()
+    assert tg.scatter_add_rows.launches == before + 1
+    # the plain version's index_add_ adds with atomics on the card
+    scale = max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("B,N,R,C,id_rows", [
+    (256, 2048, 8192, 9, 250), (3, 777, 1001, 3, None), (4, 100, 3000, 3, 5)])
+def test_scatter_kernel_is_deterministic(card, B, N, R, C, id_rows):
+    """K3 sums each row's segment in a fixed order: the same bits every
+    run, within f32 rounding of the CPU's sequential index_add_."""
+    _, ids, values = _rows(B, N, R, C, card, seed=R + 1, id_rows=id_rows)
+    first = tg.scatter_add_rows(ids, values, N)
+    again = tg.scatter_add_rows(ids, values, N)
+    cpu = tg.scatter_add_reference(ids.cpu(), values.cpu(), N)
+    assert torch.equal(first, again)
+    scale = max(1.0, cpu.abs().max().item())
+    assert (first.cpu() - cpu).abs().max().item() <= 1e-5 * scale
+
+
+def test_gather_kernels_refuse_what_they_do_not_take(card):
+    table, ids, values = _rows(2, 50, 40, 3, card, seed=0)
+    with pytest.raises(ValueError, match="share one"):
+        tg.gather_rows(table, ids.cpu())
+    with pytest.raises(TypeError, match="int64"):
+        tg.scatter_add_rows(ids.int(), values, 50)
+    wide = torch.zeros(2, 40, 17, device=card)
+    with pytest.raises(ValueError, match="at most 16"):
+        tg.scatter_add_rows(ids, wide, 50)
+
+
+def test_collision_broad_phase_equal_on_card_and_cpu(card):
+    """The broad phase is comparisons and IEEE arithmetic: on the same
+    vertices the card and the CPU give identical pair lists, and the pair
+    gather's VJP through K3 matches the plain version."""
+    gen = torch.Generator().manual_seed(0)
+    V, F = 400, 600
+    verts = torch.rand(2, V, 3, generator=gen)
+    base = torch.randint(0, V - 3, (F, 1), generator=gen)
+    faces = torch.cat([base, base + 1, base + 2], dim=1)
+    kw = dict(max_pairs=512, max_tris=256, sigma=0.01)
+    cpu = tc.make_collision_fn(faces, **kw)
+    gpu = tc.make_collision_fn(faces.to(card), **kw)
+    want = cpu.build(verts)
+    got = gpu.build(verts.to(card))
+    for name, w in want._asdict().items():
+        assert torch.equal(getattr(got, name).cpu(), w), name
+    vg = verts.to(card).requires_grad_(True)
+    vp = verts.to(card).requires_grad_(True)
+    args = (got.tri_corners, got.pa, got.pb)
+    ta, tb = tc.pair_gather(vg, *args)
+    ra, rb = tc.pair_gather_reference(vp, *args)
+    assert torch.equal(ta, ra) and torch.equal(tb, rb)
+    (ta.sum() + 2 * tb.sum()).backward()
+    (ra.sum() + 2 * rb.sum()).backward()
+    torch.cuda.synchronize()
+    scale = max(1.0, vp.grad.abs().max().item())
+    assert (vg.grad - vp.grad).abs().max().item() <= 1e-5 * scale

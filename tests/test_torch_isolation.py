@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from smplifyx_torch.fitting.pipeline import fit_batch, recover_outputs
-from smplifyx_torch.problem import build_problem, slice_config
+from smplifyx_torch.problem import build_problem, slice_config, slice_session
 from smplifyx_torch.session import build_fit_session
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -55,4 +55,6 @@ def test_entry_points_refuse_the_cpu_by_default(no_card):
                         session.joint_map)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_problem(2, 96)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        slice_session(96)        # the collision-on slice
     assert np.isfinite(x0.numpy()).all()

@@ -140,3 +140,65 @@ def test_max_evals_caps_each_lane():
     # A lane stops once it has spent the budget; its last iteration may
     # overrun by at most one line search.
     assert int(res.n_evals.max()) <= 20 + 4
+
+
+@pytest.mark.parametrize("ls_mode", ["wolfe", "armijo"])
+@pytest.mark.parametrize("aux_every", [1, 4])
+def test_aux_counts_equal_jax_vmap(ls_mode, aux_every):
+    """A separable problem whose target moves with an aux rebuilt from x
+    (a hundredth of floor(x), folded into the previous aux by a max): the
+    aux reaches an exact fixed point, so lanes reopen after a refresh and
+    then seal, and per-lane counts equal JAX's vmap(minimize)."""
+    rng = np.random.default_rng(0)
+    B, D = 6, 5
+    scale = rng.uniform(0.5, 3, (B, D)).astype(np.float32)
+    tgt = rng.normal(size=(B, D)).astype(np.float32)
+    cfg = dict(max_iters=40, ls_mode=ls_mode, aux_every=aux_every)
+
+    def jfun(x, aux, s, c):
+        r = x - c - aux[0]
+        return jnp.sum(s * r * r)
+
+    ref = jax.jit(jax.vmap(lambda x, s, c: jminimize(
+        lambda z, a: jfun(z, a, s, c), x, cfg=JConfig(**cfg),
+        aux_fn=lambda z: (0.01 * jnp.floor(z),),
+        aux_refresh_fn=lambda z, p: (jnp.maximum(p[0], 0.01 * jnp.floor(z)),),
+    )))(jnp.zeros((B, D)), jnp.asarray(scale), jnp.asarray(tgt))
+    S, C = t(scale), t(tgt)
+
+    def tfun(x, aux):
+        r = x - C - aux[0]
+        return torch.sum(S * r * r, dim=-1)
+
+    res = minimize(
+        tfun, torch.zeros(B, D), cfg=LBFGSConfig(**cfg),
+        aux_fn=lambda z: (0.01 * torch.floor(z),),
+        aux_refresh_fn=lambda z, p: (torch.maximum(p[0], 0.01 * torch.floor(z)),))
+    assert int(res.n_iters.max()) > aux_every   # more than one period
+    np.testing.assert_array_equal(res.n_iters.numpy(), np.asarray(ref.n_iters))
+    np.testing.assert_array_equal(res.n_evals.numpy(), np.asarray(ref.n_evals))
+    np.testing.assert_array_equal(res.converged.numpy(),
+                                  np.asarray(ref.converged))
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(ref.x), atol=1e-6)
+
+
+@pytest.mark.parametrize("ls_mode", ["wolfe", "armijo"])
+def test_aux_batched_equals_per_lane_runs(ls_mode):
+    x0 = t(np.random.default_rng(5).uniform(-1.5, 1.5, size=(5, 4)))
+    cfg = LBFGSConfig(max_iters=40, ls_mode=ls_mode, max_ls=6, aux_every=3)
+    calls = []
+
+    def fun(x, aux):
+        return rosenbrock(x) + torch.sum((x - aux[0]) ** 2, dim=-1)
+
+    def aux_fn(x):
+        calls.append(x.shape[0])
+        return (torch.round(x * 2.0) / 2.0,)
+
+    batched = minimize(fun, x0, cfg=cfg, aux_fn=aux_fn)
+    assert len(calls) > 2       # rebuilt at the start of every period
+    for b in range(x0.shape[0]):
+        one = minimize(fun, x0[b:b + 1], cfg=cfg, aux_fn=aux_fn)
+        assert torch.equal(batched.x[b], one.x[0]), b
+        assert batched.n_evals[b] == one.n_evals[0]
+        assert batched.n_iters[b] == one.n_iters[0]

@@ -69,7 +69,8 @@ class TestPlainVersion:
             raise AssertionError("the kernel loader ran for CPU tensors")
 
         monkeypatch.setattr(tlbs, "_load", refuse)
-        monkeypatch.setattr(tlbs, "build", refuse)
+        monkeypatch.setattr(tlbs.nvcc, "build", refuse)
+        monkeypatch.setattr(tlbs.nvcc, "load", refuse)
         before = tlbs.lbs_apply.launches
         W, A, v = map(torch.as_tensor, make_inputs(V=40))
         A.requires_grad_(True)

@@ -1,9 +1,9 @@
 """Port parity for the staged fit against the JAX package, on the CPU.
 
 Whole fits are compared at loss level: f32 L-BFGS trajectories diverge
-between implementations (docs/ARCHITECTURE.md "Numerics").  The slice's
-configuration is the combined preset without collision and with the
-guess-init camera path."""
+between implementations (docs/ARCHITECTURE.md "Numerics").  The fits use
+the combined preset with the guess-init camera path, with the collision
+term off (`fits`) and on (`fit_with_collision`)."""
 
 import dataclasses
 
@@ -15,24 +15,30 @@ import torch
 
 import bench
 from smplifyx_tpu.fitting.lbfgs import LBFGSConfig as JConfig
+from smplifyx_tpu.models.bodymodel import build_extra_lmk_matrix
 from smplifyx_tpu.fitting.pipeline import FitOptions as JOptions
 from smplifyx_tpu.fitting.pipeline import fit_batch as j_fit_batch
 from smplifyx_tpu.fitting.pipeline import recover_outputs as j_recover
 from smplifyx_tpu.fitting.prepare import settings_from_config as j_settings
 from smplifyx_tpu.fitting.stages import build_stage_schedule as j_schedule
 from smplifyx_tpu.models.sparse import build_joints_model as j_joints_model
+from smplifyx_tpu.ops.collision import make_collision_fn as j_collision_fn
+from smplifyx_tpu.ops.collision import synthetic_part_segm
 from smplifyx_tpu.utils.config import load_config as j_load_config
 
 from smplifyx_torch import convert
 from smplifyx_torch.fitting.lbfgs import LBFGSConfig
 from smplifyx_torch.fitting.pipeline import FitOptions, fit_batch, recover_outputs
 from smplifyx_torch.models.sparse import build_joints_model
+from smplifyx_torch.ops.collision import make_collision_fn
 from smplifyx_torch.problem import (
     SLICE_OVERRIDES,
     SLICE_PRESET,
     build_problem,
     build_slice,
     slice_config,
+    slice_model,
+    slice_part_segm,
 )
 from smplifyx_torch.session import build_fit_session
 
@@ -57,7 +63,7 @@ def schedule_args(cfg):
 def fits():
     """The same problem fitted by both packages, at <= ITERS per stage."""
     jcfg = j_load_config(SLICE_PRESET, **SLICE_OVERRIDES,
-                         synthetic_num_verts=V)
+                         interpenetration=False, synthetic_num_verts=V)
     model, _, jframes, x0, jmap = bench.build_problem(B, V)
     js = j_settings(jcfg)
     edges = jnp.asarray(jcfg.body_tri_pairs)
@@ -132,6 +138,10 @@ def test_recover_outputs_matches(fits):
 def test_session_runs_the_slice_end_to_end():
     session, model, jm, frames, x0 = build_slice(B, V, device="cpu",
                                                  maxiters=3)
+    assert session.coll_stage_mask == (False, True, True)
+    assert session.cfg.part_segm_fn and session.cfg.ign_part_pairs
+    assert session.collision_fn.segm is not None
+    assert torch.equal(session.collision_fn.faces, model.faces)
     res = session.fit(model, jm, frames, x0)
     assert np.isfinite(res.loss.numpy()).all()
     assert np.isfinite(res.camera_loss.numpy()).all()
@@ -143,7 +153,6 @@ def test_session_runs_the_slice_end_to_end():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(interpenetration=True), "item 7"),
     (dict(use_vposer=True), "item 4"),
     (dict(optim_type="adam"), "item 8"),
 ])
@@ -151,3 +160,110 @@ def test_session_refuses_unported_paths(override, item):
     cfg = slice_config(V, **override)
     with pytest.raises(NotImplementedError, match=item):
         build_fit_session(cfg, device="cpu")
+
+
+def fit_with_collision(refresh, slice_faces, V=V):
+    """Collision-on fits by both packages: the preset's last two stages,
+    collision in the second only, on the smooth V=96 model.  Its own faces
+    take `synthetic_part_segm`; with `slice_faces`, the faces and parts of
+    the slice (`slice_model`, `slice_part_segm`) go to both packages."""
+    jcfg = j_load_config(SLICE_PRESET, **SLICE_OVERRIDES,
+                         synthetic_num_verts=V)
+    model, _, jframes, x0, jmap = bench.build_problem(B, V, smooth=True)
+    js = j_settings(jcfg)
+    assert js.interpenetration
+    edges = jnp.asarray(jcfg.body_tri_pairs)
+    sched_args = [a[1:] for a in schedule_args(jcfg)]
+    mask = (False, True)
+    if slice_faces:
+        tslice = slice_model(V, device="cpu")
+        np.testing.assert_array_equal(tslice.v_template.numpy(),
+                                      np.asarray(model.v_template))
+        faces = tslice.faces.numpy().astype(np.int32)
+        # the JAX model's static landmarks are a matrix over its faces
+        lmk = build_extra_lmk_matrix(
+            V, np.asarray(model.extra_joint_vids), faces,
+            np.asarray(model.lmk_faces_idx), np.asarray(model.lmk_bary_coords))
+        model = model.replace(faces=jnp.asarray(faces),
+                              extra_lmk_matrix=jnp.asarray(lmk))
+        segm, parents = slice_part_segm(tslice)
+    else:
+        segm, parents = synthetic_part_segm(model.faces.shape[0], 27, seed=0)
+    faces = np.asarray(model.faces)
+    coll_kw = dict(segm=segm, parents=parents,
+                   ign_part_pairs=jcfg.ign_part_pairs,
+                   max_pairs=max(jcfg.max_coll_pairs, jcfg.max_collisions),
+                   sigma=jcfg.df_cone_height,
+                   penalize_outside=jcfg.penalize_outside)
+    lb = dict(max_iters=ITERS, history=16, max_ls=4, ls_mode="armijo",
+              ls_soft_accept=6, max_evals=3 * ITERS // 2, aux_every=4)
+    cam = dict(max_iters=ITERS, history=8, ls_soft_accept=6)
+    jopt = JOptions(lbfgs=JConfig(**lb), camera_lbfgs=JConfig(**cam),
+                    try_both_orient=True, coll_broad_refresh=refresh)
+    jfn = j_collision_fn(jnp.asarray(faces), **coll_kw)
+    jres = jax.jit(lambda m, jm, fr, x: j_fit_batch(
+        m, js, jopt, j_schedule(*sched_args), fr, x, lambda b: b, jmap,
+        edge_idxs=edges, collision_fn=jfn, joints_model=jm,
+        coll_stage_mask=mask))(model, j_joints_model(model), jframes, x0)
+
+    tmodel = convert.smplx_model(jfields(model), "cpu")
+    topt = FitOptions(lbfgs=LBFGSConfig(**lb), camera_lbfgs=LBFGSConfig(**cam),
+                      try_both_orient=True, coll_broad_refresh=refresh)
+    tres = fit_batch(
+        tmodel, convert.fit_settings(jfields(js)), topt,
+        convert.stage_weights(jfields(j_schedule(*sched_args)), "cpu"),
+        convert.frame_data(jfields(jframes), "cpu"),
+        torch.as_tensor(np.array(x0)), lambda b: b,
+        torch.as_tensor(np.array(jmap), dtype=torch.int64),
+        edge_idxs=torch.as_tensor(np.asarray(edges)),
+        joints_model=build_joints_model(tmodel), coll_stage_mask=mask,
+        collision_fn=make_collision_fn(tmodel.faces, **coll_kw), device="cpu")
+    return jres, tres
+
+
+@pytest.fixture(scope="module", params=["eval", "iter"])
+def collision_fits(request):
+    return fit_with_collision(request.param, slice_faces=False)
+
+
+def test_collision_fit_matches_at_loss_level(collision_fits):
+    assert_collision_fits_match(*collision_fits)
+
+
+def test_slice_faces_collision_fit_matches_at_loss_level():
+    """The slice's own faces and parts, as the main path fits them."""
+    assert_collision_fits_match(*fit_with_collision("iter", slice_faces=True))
+
+
+def assert_collision_fits_match(j, t):
+    # loss level, as for the collision-off fit (5% per lane)
+    np.testing.assert_allclose(t.loss.numpy(), np.asarray(j.loss), rtol=0.05)
+    np.testing.assert_allclose(t.stage_losses.numpy(),
+                               np.asarray(j.stage_losses), rtol=0.05)
+    np.testing.assert_array_equal(t.flipped.numpy(), np.asarray(j.flipped))
+    assert t.stage_evals.shape == (2, B)
+    assert int(t.stage_evals[1].min()) > 0
+
+
+def test_slice_model_has_local_faces_and_a_part_segmentation():
+    from smplifyx_torch.models.bodymodel import smooth_synthetic_model
+
+    model = slice_model(500, device="cpu")
+    base = smooth_synthetic_model(500, seed=0, device="cpu")
+    assert torch.equal(model.faces[:, 0], base.faces[:, 0])
+    assert torch.equal(model.v_template, base.v_template)
+    f = model.faces
+    assert bool(((f[:, 0] != f[:, 1]) & (f[:, 1] != f[:, 2])
+                 & (f[:, 0] != f[:, 2])).all())
+
+    def longest_edge(faces):
+        tri = model.v_template[faces]
+        return (tri - tri.roll(1, dims=1)).norm(dim=-1).amax(-1).median()
+
+    # the two nearest neighbours make triangles far smaller than the
+    # generator's own, which join vertices of equal height across the body
+    assert longest_edge(f) < 0.25 * longest_edge(base.faces)
+    segm, parents = slice_part_segm(model)
+    assert segm.shape == parents.shape == (f.shape[0],)
+    assert set(np.unique(segm)) <= set(range(model.lbs_weights.shape[1]))
+    assert (parents >= 0).all()
