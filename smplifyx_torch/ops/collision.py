@@ -17,7 +17,9 @@ The broad phase carries no gradient.  The narrow phase fetches the pair
 corners in two levels (vertices -> unique-triangle corner rows -> pair
 sides) with kernel K2 and takes its gradient with kernel K3
 (ops/gather.py); `pair_gather_reference` is the same function in plain
-torch indexing.
+torch indexing.  The ids of both levels are fixed until the next broad
+phase, so the aux carries their row plans (the sort K3 reads), built once
+per broad phase.
 
 Every step is comparisons, compactions and IEEE arithmetic, so on the same
 vertices the pair lists equal the JAX package's.  The TPU-only one-hot
@@ -37,6 +39,7 @@ import torch
 from smplifyx_torch.ops.gather import (
     gather_reference,
     gather_rows,
+    row_plan,
     scatter_add_rows,
 )
 
@@ -63,7 +66,8 @@ def synthetic_part_segm(num_faces: int, num_parts: int = 27, seed: int = 0):
 
 
 class CollisionAux(NamedTuple):
-    """A broad-phase result reused across evaluations; every field [B, ...]."""
+    """A broad-phase result reused across evaluations; every field [B, ...]
+    and lane-local, so auxes merge lane by lane.  Built by `make_aux`."""
 
     tri_corners: torch.Tensor   # [B, T, 3] corner vertex ids of unique triangles
     pa: torch.Tensor            # [B, P] pair side A: index into tri_corners
@@ -71,6 +75,22 @@ class CollisionAux(NamedTuple):
     valid: torch.Tensor         # [B, P] bool
     order: torch.Tensor         # [B, F] Morton permutation of the faces
     sorted_pack: torch.Tensor   # [B, F, 3] faces in Morton order
+    corner_plan: torch.Tensor   # [B, 3, 3T] int32 row plan of tri_corners
+    pair_plan: torch.Tensor     # [B, 3, 2P] int32 row plan of cat(pa, pb)
+
+
+def row_plans(tri_corners, pa, pb):
+    """The row plans (ops/gather.py `row_plan`) of the narrow phase's two
+    gather levels: the corner ids and the pair sides."""
+    B, T, _ = tri_corners.shape
+    return (row_plan(tri_corners.reshape(B, 3 * T)),
+            row_plan(torch.cat([pa, pb], dim=1)))
+
+
+def make_aux(tri_corners, pa, pb, valid, order, sorted_pack) -> CollisionAux:
+    """The aux of a broad phase, with the row plans of its gather levels."""
+    return CollisionAux(tri_corners, pa, pb, valid, order, sorted_pack,
+                        *row_plans(tri_corners, pa, pb))
 
 
 def _cone_penalty_pairs(ta, tb, sigma: float, penalize_outside: bool,
@@ -152,38 +172,38 @@ def _eb(v):
 class _PairGather(torch.autograd.Function):
     """Two-level narrow-phase corner fetch, forward on K2 and VJP on K3.
 
-    vertices [B, V, 3], tri_corners [B, T, 3], pa/pb [B, P] ->
-    (ta, tb) [B, P, 3, 3].  Forward: level 1 gathers the 3T corner
-    positions from the vertex table (C = 3), level 2 the pair sides from
-    the [T, 9] corner rows (C = 9).  Backward: the same levels transposed,
-    level 2 first.  No gradient flows to the ids."""
+    vertices [B, V, 3], corner_plan [B, 3, 3T] and pair_plan [B, 3, 2P]
+    (the row plans of tri_corners and of cat(pa, pb)) -> (ta, tb)
+    [B, P, 3, 3].  Forward: level 1 gathers the 3T corner positions from
+    the vertex table (C = 3), level 2 the pair sides from the [T, 9] corner
+    rows (C = 9).  Backward: the same levels transposed, level 2 first, on
+    the same plans.  No gradient flows to the ids."""
 
     @staticmethod
-    def forward(ctx, vertices, tri_corners, pa, pb):
-        B, T, _ = tri_corners.shape
-        P = pa.shape[1]
-        cids = tri_corners.reshape(B, 3 * T)
-        pids = torch.cat([pa, pb], dim=1)
-        c9 = gather_rows(vertices, cids).reshape(B, T, 9)
-        rows = gather_rows(c9, pids).reshape(B, 2, P, 3, 3)
-        ctx.save_for_backward(cids, pids)
-        ctx.num_verts, ctx.num_tris = vertices.shape[1], T
+    def forward(ctx, vertices, corner_plan, pair_plan):
+        B, T, P = vertices.shape[0], corner_plan.shape[2] // 3, pair_plan.shape[2] // 2
+        c9 = gather_rows(vertices, corner_plan[:, 0]).reshape(B, T, 9)
+        rows = gather_rows(c9, pair_plan[:, 0]).reshape(B, 2, P, 3, 3)
+        ctx.save_for_backward(corner_plan, pair_plan)
+        ctx.num_verts = vertices.shape[1]
         return rows[:, 0], rows[:, 1]
 
     @staticmethod
     def backward(ctx, gta, gtb):
-        cids, pids = ctx.saved_tensors
-        B = cids.shape[0]
+        corner_plan, pair_plan = ctx.saved_tensors
+        B, T = corner_plan.shape[0], corner_plan.shape[2] // 3
         gp = torch.cat([gta.reshape(B, -1, 9), gtb.reshape(B, -1, 9)], dim=1)
-        gc9 = scatter_add_rows(pids, gp.contiguous(), ctx.num_tris)
-        dv = scatter_add_rows(cids, gc9.reshape(B, -1, 3), ctx.num_verts)
-        return dv, None, None, None
+        gc9 = scatter_add_rows(pair_plan[:, 0], gp.contiguous(), T, pair_plan)
+        dv = scatter_add_rows(corner_plan[:, 0], gc9.reshape(B, -1, 3),
+                              ctx.num_verts, corner_plan)
+        return dv, None, None
 
 
 def pair_gather(vertices, tri_corners, pa, pb):
     """(ta, tb) [B, P, 3, 3]: the pair sides' corner positions through K2,
-    differentiable in vertices through K3."""
-    return _PairGather.apply(vertices, tri_corners, pa, pb)
+    differentiable in vertices through K3, on row plans built here (the
+    collision term passes its aux's to `_PairGather`)."""
+    return _PairGather.apply(vertices, *row_plans(tri_corners, pa, pb))
 
 
 def pair_gather_reference(vertices, tri_corners, pa, pb):
@@ -450,7 +470,8 @@ class CollisionFn:
         """Deduplicate the 2P surviving ranks to <= T unique triangles,
         resolve their corner ids once, and store each pair side as an
         index into that list.  Pairs whose triangle overflows T drop
-        (valid &= matched).  -> (CollisionAux, distinct-triangle count)."""
+        (valid &= matched).  -> (the fields of `make_aux` in its order,
+        distinct-triangle count)."""
         F, Fp, T = self.F, self.Fp, self.T
         ra_v = torch.where(valid, ra, Fp)                   # sentinel sorts last
         rb_v = torch.where(valid, rb, Fp)
@@ -473,9 +494,8 @@ class CollisionFn:
 
         pa, ma = side_index(ra)
         pb, mb = side_index(rb)
-        aux = CollisionAux(tri_corners, pa, pb, valid & ma & mb, order,
-                           sorted_pack)
-        return aux, is_new.sum(dim=1)
+        return ((tri_corners, pa, pb, valid & ma & mb, order, sorted_pack),
+                is_new.sum(dim=1))
 
     @torch.no_grad()
     def candidate_pairs(self, vertices):
@@ -503,8 +523,8 @@ class CollisionFn:
         """Broad phase as a reusable aux, Morton order included."""
         order = self.morton_order(vertices)
         (ra, rb, valid), _ = self._funnel(*self._sorted_tables(vertices, order))
-        return self._resolve_ranks(ra, rb, valid, order,
-                                   self._sorted_pack_of(order))[0]
+        return make_aux(*self._resolve_ranks(ra, rb, valid, order,
+                                             self._sorted_pack_of(order))[0])
 
     @torch.no_grad()
     def build_refresh(self, vertices, aux: CollisionAux) -> CollisionAux:
@@ -512,7 +532,8 @@ class CollisionFn:
         The superblock level is all-pairs, so the result is exact up to the
         budgets for any order; a stale order only loosens the groupings."""
         (ra, rb, valid), _ = self._funnel(*self._sorted_tables(vertices, aux.order))
-        return self._resolve_ranks(ra, rb, valid, aux.order, aux.sorted_pack)[0]
+        return make_aux(*self._resolve_ranks(ra, rb, valid, aux.order,
+                                             aux.sorted_pack)[0])
 
     # ---- narrow phase --------------------------------------------------
 
@@ -530,7 +551,7 @@ class CollisionFn:
 
     def apply(self, vertices, aux: CollisionAux) -> torch.Tensor:
         """Penalty [B] on a fixed pair list; differentiable in vertices."""
-        ta, tb = pair_gather(vertices, aux.tri_corners, aux.pa, aux.pb)
+        ta, tb = _PairGather.apply(vertices, aux.corner_plan, aux.pair_plan)
         return self.penalty(ta, tb, aux.valid)
 
     def __call__(self, vertices) -> torch.Tensor:

@@ -74,7 +74,7 @@ def build(*names: str, force: bool = False) -> dict:
             continue
         os.replace(tmp, library(name))
         ptxas = [ln.strip() for ln in output.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "entry function" in ln or "registers" in ln or "spill" in ln]
         report[name] = (seconds, " | ".join(ptxas))
     if failed:
         raise RuntimeError("\n".join(failed))

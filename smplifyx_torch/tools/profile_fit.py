@@ -8,9 +8,11 @@ and once under torch.profiler.  Prints one JSON line: the unprofiled and
 profiled wall seconds, device-busy seconds (the sum of CUDA kernel times
 in the profiled fit), the device's idle share over each of the two walls,
 kernel launches per fit, host reads per fit, the device time and share of
-each hand-written kernel (K1 `lbs_kernel`, K2 `gather_kernel`, K3
-`segment_sum_kernel`), and the kernels that take the most device time;
-writes the profiler's table to <out>/profile_fit.txt.
+each hand-written kernel (K1 `lbs_kernel`, K2 `k2_gather_rows`, K3
+`k3_scatter_tiles` and `k3_join`), the `aten::sort` calls with the device time of their
+kernels and the row plans built (two per broad phase, ops/gather.py
+`row_plan`), and the kernels that take the most device time; writes the
+profiler's table to <out>/profile_fit.txt.
 
 The profiler's host overhead stretches the profiled wall while the kernels
 themselves keep their times, so the idle share of the fit as users run it
@@ -29,6 +31,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from smplifyx_torch.ops.gather import row_plan
 from smplifyx_torch.problem import build_slice
 
 
@@ -47,27 +50,32 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
+    row_plan.builds = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         session.fit(model, jm, frames, x0)
         torch.cuda.synchronize()
         wall_profiled = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     launches = sum(e.count for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     ours = {}
-    for label, symbol in (("lbs", "lbs_kernel"), ("gather", "gather_kernel"),
-                          ("scatter", "segment_sum_kernel")):
-        hits = [e for e in events if symbol in e.key]
+    for label, symbols in (("lbs", ("lbs_kernel",)), ("gather", ("k2_gather_rows",)),
+                           ("scatter", ("k3_scatter_tiles", "k3_join"))):
+        hits = [e for e in events if any(sym in e.key for sym in symbols)]
         ms = sum(e.self_device_time_total for e in hits) / 1e3
         ours[label] = {"count": sum(e.count for e in hits), "device_ms": ms,
                        "share": ms / 1e3 / busy if busy else None}
+    sorts = [e for e in averages if e.key == "aten::sort"]
+    ours["aten_sort"] = {"count": sum(e.count for e in sorts),
+                         "device_ms": sum(e.device_time_total for e in sorts) / 1e3}
+    ours["plan_builds"] = row_plan.builds
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "profile_fit.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total",
-                                          row_limit=60))
+        f.write(averages.table(sort_by="self_device_time_total", row_limit=60))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

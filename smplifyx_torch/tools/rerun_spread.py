@@ -6,11 +6,11 @@ Fits the slice (`problem.build_slice`: the collision-on combined preset,
 V=10475) twice on the card with each of three narrow phases, and prints one
 JSON line per narrow phase: the per-lane relative difference of the two
 runs' final losses (quantiles, lanes over 5%), whether the two runs ended
-bit-equal, and the messages of any operation without a deterministic
-implementation.
+bit-equal, each run's median final loss, and the messages of any operation
+without a deterministic implementation.
 
   * ``kernel``: the port's pair gather (K2 forward, K3 backward, K3 a
-    segmented sum over sorted ids);
+    segmented sum over the aux's row plans);
   * ``index_add``: K2 forward, backward by `index_add_`, which adds with
     float atomics on the card (the summation of an atomic K3);
   * ``index_add_deterministic``: the same under
@@ -45,12 +45,13 @@ class _IndexAddPairGather(_PairGather):
 
     @staticmethod
     def backward(ctx, gta, gtb):
-        cids, pids = ctx.saved_tensors
-        B = cids.shape[0]
+        corner_plan, pair_plan = ctx.saved_tensors
+        B, T = corner_plan.shape[0], corner_plan.shape[2] // 3
         gp = torch.cat([gta.reshape(B, -1, 9), gtb.reshape(B, -1, 9)], dim=1)
-        gc9 = scatter_add_reference(pids, gp.contiguous(), ctx.num_tris)
-        dv = scatter_add_reference(cids, gc9.reshape(B, -1, 3), ctx.num_verts)
-        return dv, None, None, None
+        gc9 = scatter_add_reference(pair_plan[:, 0], gp.contiguous(), T)
+        dv = scatter_add_reference(corner_plan[:, 0], gc9.reshape(B, -1, 3),
+                                   ctx.num_verts)
+        return dv, None, None
 
 
 class IndexAddCollision:
@@ -63,19 +64,20 @@ class IndexAddCollision:
         return getattr(self.fn, name)
 
     def apply(self, vertices, aux):
-        ta, tb = _IndexAddPairGather.apply(vertices, aux.tri_corners, aux.pa,
-                                           aux.pb)
+        ta, tb = _IndexAddPairGather.apply(vertices, aux.corner_plan,
+                                           aux.pair_plan)
         return self.fn.penalty(ta, tb, aux.valid)
 
 
 def spread(session, model, jm, frames, x0):
     """Two fits of the same inputs -> (per-lane relative loss difference,
-    bit-equal x)."""
+    bit-equal x, each fit's median final loss)."""
     a = session.fit(model, jm, frames, x0)
     b = session.fit(model, jm, frames, x0)
     torch.cuda.synchronize()
     rel = (a.loss - b.loss).abs() / b.loss.abs()
-    return rel, bool(torch.equal(a.x, b.x))
+    medians = [float(r.loss.median()) for r in (a, b)]
+    return rel, bool(torch.equal(a.x, b.x)), medians
 
 
 def main(argv=None) -> int:
@@ -97,7 +99,7 @@ def main(argv=None) -> int:
         torch.use_deterministic_algorithms(deterministic, warn_only=True)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            rel, bit_equal = spread(session, model, jm, frames, x0)
+            rel, bit_equal, medians = spread(session, model, jm, frames, x0)
         torch.use_deterministic_algorithms(False)
         print(json.dumps({
             "narrow_phase": name, "card": smi, "B": int(x0.shape[0]),
@@ -107,6 +109,7 @@ def main(argv=None) -> int:
             "rel_diff_quantiles": {q: float(rel.quantile(float(q)))
                                    for q in ("0.5", "0.9", "1.0")},
             "lanes_over_5pct": int((rel > 0.05).sum()),
+            "loss_median": medians,
             "nondeterministic_ops": sorted({str(w.message)[:160]
                                             for w in caught}),
         }), flush=True)

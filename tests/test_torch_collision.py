@@ -21,7 +21,9 @@ from smplifyx_tpu.ops import collision as jc
 from smplifyx_tpu.utils.proxy_mesh import build_posed_human, oracle_overlap_pairs
 
 from smplifyx_torch import convert
+from smplifyx_torch.fitting.lbfgs import _pick_aux
 from smplifyx_torch.ops import collision as tc
+from smplifyx_torch.ops.gather import row_plan
 
 AUX_FIELDS = ("tri_corners", "pa", "pb", "valid", "order", "sorted_pack")
 
@@ -176,6 +178,53 @@ def test_pair_gather_kernel_wrappers_equal_plain_version(mesh):
     g = torch.randn(ta.shape, generator=torch.Generator().manual_seed(0))
     ((ta + 2 * tb) * g).sum().backward()
     ((ra + 2 * rb) * g).sum().backward()
+    # two scatter levels sum in another order than one index backward
+    scale = max(1.0, V2.grad.abs().max().item())
+    assert (V1.grad - V2.grad).abs().max().item() <= 1e-5 * scale
+
+
+def _assert_plans_of_ids(aux):
+    B, T, _ = aux.tri_corners.shape
+    assert torch.equal(aux.corner_plan, row_plan(aux.tri_corners.reshape(B, 3 * T)))
+    assert torch.equal(aux.pair_plan, row_plan(torch.cat([aux.pa, aux.pb], 1)))
+
+
+def test_aux_carries_the_row_plans_of_its_ids(mesh):
+    aux = mesh["tfn"].build(mesh["tV"])
+    _assert_plans_of_ids(aux)
+    converted = convert.collision_aux(mesh["jaux"], "cpu")
+    _assert_plans_of_ids(converted)
+    assert torch.equal(converted.pair_plan, aux.pair_plan)
+    assert torch.equal(converted.corner_plan, aux.corner_plan)
+
+
+def test_pick_aux_merges_plans_lane_by_lane(mesh):
+    """The L-BFGS loop refreshes some lanes' aux and keeps the others'
+    (`_pick_aux`): the merged plans are the plans of the merged ids."""
+    old = mesh["tfn"].build(mesh["tV"])
+    moved = mesh["V"] + np.random.default_rng(5).normal(
+        0, 2e-2, mesh["V"].shape).astype(np.float32)
+    new = mesh["tfn"].build_refresh(torch.as_tensor(moved), old)
+    assert not torch.equal(new.pair_plan, old.pair_plan)
+    for pick in ([True, False], [False, True]):
+        merged = _pick_aux(torch.tensor(pick), new, old)
+        assert isinstance(merged, tc.CollisionAux)
+        _assert_plans_of_ids(merged)
+        for lane, fresh in enumerate(pick):
+            want = new if fresh else old
+            assert torch.equal(merged.pair_plan[lane], want.pair_plan[lane])
+
+
+def test_pair_gather_on_the_aux_plans_equals_plain_version(mesh):
+    aux = mesh["tfn"].build(mesh["tV"])
+    V1 = mesh["tV"].clone().requires_grad_(True)
+    V2 = mesh["tV"].clone().requires_grad_(True)
+    ta, tb = tc._PairGather.apply(V1, aux.corner_plan, aux.pair_plan)
+    ra, rb = tc.pair_gather_reference(V2, aux.tri_corners, aux.pa, aux.pb)
+    assert torch.equal(ta, ra) and torch.equal(tb, rb)
+    g = torch.randn(ta.shape, generator=torch.Generator().manual_seed(1))
+    ((ta - 3 * tb) * g).sum().backward()
+    ((ra - 3 * rb) * g).sum().backward()
     # two scatter levels sum in another order than one index backward
     scale = max(1.0, V2.grad.abs().max().item())
     assert (V1.grad - V2.grad).abs().max().item() <= 1e-5 * scale

@@ -112,12 +112,92 @@ def test_scatter_kernel_is_deterministic(card, B, N, R, C, id_rows):
     assert (first.cpu() - cpu).abs().max().item() <= 1e-5 * scale
 
 
+def _padding_heavy(B, N, R, C, dev, seed):
+    """~95% of each lane's ids on row 0, as the pair list's padding slots
+    put them at level 2."""
+    _, ids, values = _rows(B, N, R, C, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    pad = torch.rand(B, R, device=dev, generator=gen) < 0.95
+    return torch.where(pad, 0, ids), values
+
+
+@pytest.mark.parametrize("B,N,R,C,kind", [
+    (256, 2048, 8192, 9, "padding"), (4, 300, 5000, 3, "padding"),
+    (3, 777, 1001, 3, "uniform"),       # R not a multiple of the 1,024 tile
+    (3, 300, 1001, 5, "uniform"), (2, 64, 2500, 16, "uniform")])
+def test_scatter_kernel_is_deterministic_at_every_shape(card, B, N, R, C, kind):
+    """K3 with a plan: within 1e-5 per unit of scale of its plain version,
+    bit-equal over two launches and to a launch that builds its own plan."""
+    if kind == "padding":
+        ids, values = _padding_heavy(B, N, R, C, card, seed=R)
+    else:
+        _, ids, values = _rows(B, N, R, C, card, seed=R)
+    plan = tg.row_plan(ids)
+    first = tg.scatter_add_rows(ids, values, N, plan)
+    again = tg.scatter_add_rows(ids, values, N, plan)
+    unplanned = tg.scatter_add_rows(ids, values, N)
+    ref = tg.scatter_add_reference(ids, values, N)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, unplanned)
+    scale = max(1.0, ref.abs().max().item())
+    assert (first - ref).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("B,N,R,C,id_rows", [
+    (256, 10475, 6144, 3, None), (8, 2048, 8192, 9, 300), (3, 777, 1001, 3, None),
+    (3, 300, 1001, 5, 40)])
+def test_scatter_kernel_adds_short_runs_as_index_add_does(card, B, N, R, C, id_rows):
+    """Every row with at most 32 entries equals the CPU's index_add_ bit
+    for bit: K3 adds such a run in position order."""
+    _, ids, values = _rows(B, N, R, C, card, seed=R + 2, id_rows=id_rows)
+    out = tg.scatter_add_rows(ids, values, N).cpu()
+    cpu = tg.scatter_add_reference(ids.cpu(), values.cpu(), N)
+    lanes = torch.arange(B)[:, None] * N
+    count = torch.bincount((ids.cpu() + lanes).reshape(-1), minlength=B * N)
+    short = (count <= 32).reshape(B, N)
+    assert bool(short.any())
+    assert torch.equal(out[short], cpu[short])
+
+
+def test_scatter_kernel_propagates_nan_and_drops_out_of_range_ids(card):
+    _, ids, values = _rows(2, 50, 700, 9, card, seed=3)
+    ids[0, 5] = -1
+    ids[1, 7] = 50
+    values[0, 9, 4] = float("nan")
+    out = tg.scatter_add_rows(ids, values, 50)
+    keep = (ids >= 0) & (ids < 50)
+    ref = tg.scatter_add_reference(torch.where(keep, ids, 0),
+                                   values * keep[..., None], 50)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert int(torch.isnan(out).sum()) == 1
+    ok = ~torch.isnan(ref)
+    assert (out[ok] - ref[ok]).abs().max().item() <= 1e-5 * max(
+        1.0, ref[ok].abs().max().item())
+
+
+@pytest.mark.parametrize("B,N,R,C", [(256, 10475, 6144, 3), (256, 2048, 8192, 9),
+                                     (3, 777, 1001, 3), (3, 300, 1001, 5)])
+def test_gather_kernel_is_bit_exact_with_int32_ids(card, B, N, R, C):
+    table, ids, _ = _rows(B, N, R, C, card, seed=N + 1)
+    plan = tg.row_plan(ids)
+    ref = tg.gather_reference(table, ids)
+    for i in (ids, ids.int(), plan[:, 0]):
+        assert torch.equal(tg.gather_rows(table, i), ref)
+    bad = plan[:, 0].clone()
+    bad[:, 0] = -1
+    out = tg.gather_rows(table, bad)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out[:, 0]).all())
+    assert torch.equal(out[:, 1:], ref[:, 1:])
+
+
 def test_gather_kernels_refuse_what_they_do_not_take(card):
     table, ids, values = _rows(2, 50, 40, 3, card, seed=0)
     with pytest.raises(ValueError, match="share one"):
         tg.gather_rows(table, ids.cpu())
-    with pytest.raises(TypeError, match="int64"):
-        tg.scatter_add_rows(ids.int(), values, 50)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        tg.scatter_add_rows(ids.short(), values, 50)
     wide = torch.zeros(2, 40, 17, device=card)
     with pytest.raises(ValueError, match="at most 16"):
         tg.scatter_add_rows(ids, wide, 50)
