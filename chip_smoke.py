@@ -214,10 +214,14 @@ def launch_counters():
 def reset_counts():
     for fn in launch_counters().values():
         fn.launches = 0
+    launch_counters()["scatter"].join_launches = 0
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in launch_counters().items()}
+    """Launches per wrapper; `scatter_join` counts K3's second kernel."""
+    counts = {name: fn.launches for name, fn in launch_counters().items()}
+    counts["scatter_join"] = launch_counters()["scatter"].join_launches
+    return counts
 
 
 def check_lbs(name, W, B, peak, seed):
@@ -286,9 +290,10 @@ def phase_lbs(model, jm, batch, peak):
 
 def rows_bound_ms(B, R, C, touched_rows, out_rows, rate, id_bytes):
     """Least time for a row gather or scatter: bytes over the memory rate.
-    Inputs read once (id_bytes per entry of ids or plan, the rows the ids
+    Inputs read once (one id of id_bytes per entry, the rows the ids
     touch), the output written once; the arithmetic (K3's adds) is
-    negligible beside them."""
+    negligible beside them.  What an implementation reads beyond that (K3's
+    sorted order) is its own cost, not the function's."""
     nbytes = id_bytes * B * R + 4.0 * C * (touched_rows + out_rows)
     return 1e3 * nbytes / rate, "bytes"
 
@@ -329,8 +334,7 @@ def check_gather(name, table, ids, rate):
 def check_scatter(name, ids, values, num_rows, rate):
     """K3 against its plain version (within 1e-5 per unit of scale), a
     second launch on the same inputs and a launch that builds its own plan
-    (both bit-equal: no atomics, one order per id set), the rows of at most
-    32 entries against the CPU's index_add_ (bit-equal), and its times with
+    (both bit-equal: no atomics, one order per id set), and its times with
     the plan given, as the main path calls it, and the plan's build."""
     import torch
 
@@ -339,35 +343,29 @@ def check_scatter(name, ids, values, num_rows, rate):
 
     B, R, C = values.shape
     plan = row_plan(ids)
-    out = scatter_add_rows(ids, values, num_rows, plan)
+    out = scatter_add_rows(plan, values, num_rows)
     ref = scatter_add_reference(ids, values, num_rows)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     scale = max(1.0, ref.abs().max().item())
-    rerun = torch.equal(out, scatter_add_rows(ids, values, num_rows, plan))
+    rerun = torch.equal(out, scatter_add_rows(plan, values, num_rows))
     unplanned = torch.equal(out, scatter_add_rows(ids, values, num_rows))
-    # Rows of at most 32 entries add in position order, as the CPU's
-    # index_add_ does: bit-equal to it.
     lanes = torch.arange(B, device=ids.device)[:, None] * num_rows
     per_row = torch.bincount((ids + lanes).reshape(-1), minlength=B * num_rows)
-    short = (per_row <= 32).reshape(B, num_rows).cpu()
-    cpu = scatter_add_reference(ids.cpu(), values.cpu(), num_rows)
-    short_equal = torch.equal(out.cpu()[short], cpu[short])
     idx = ids[..., None].expand(B, R, C)
     zeros = torch.zeros(B, num_rows, C, device=values.device)
     times = timings(
-        kernel=lambda: scatter_add_rows(ids, values, num_rows, plan),
+        kernel=lambda: scatter_add_rows(plan, values, num_rows),
         plan=lambda: row_plan(ids),
         plain=lambda: scatter_add_reference(ids, values, num_rows),
         library=lambda: zeros.clone().scatter_add_(1, idx, values))
     distinct = int((per_row > 0).sum())
-    bound_ms, bound_by = rows_bound_ms(B, R, C, B * R, B * num_rows, rate, 8)
+    bound_ms, bound_by = rows_bound_ms(B, R, C, B * R, B * num_rows, rate, 4)
     row = {"phase": "scatter_check", "shape": name, "B": B, "R": R, "C": C,
            "num_rows": num_rows, "distinct_rows": distinct,
            "largest_row_share": int(per_row.max()) / R,
            "max_abs_err": err, "err_per_scale": err / scale,
            "rerun_bit_equal": rerun, "unplanned_bit_equal": unplanned,
-           "short_rows_equal_cpu": short_equal,
            **times, "bound_ms": bound_ms, "bound_by": bound_by}
     emit(row)
     if not err <= SCATTER_TOL * scale:
@@ -376,9 +374,6 @@ def check_scatter(name, ids, values, num_rows, rate):
     if not (rerun and unplanned):
         raise AssertionError(f"scatter launches on the same inputs differ at "
                              f"{name}: rerun {rerun}, unplanned {unplanned}")
-    if not short_equal:
-        raise AssertionError(f"scatter rows of at most 32 entries differ from "
-                             f"the CPU's index_add_ at {name}")
     return row
 
 
@@ -407,8 +402,8 @@ def phase_gather(session, model, peak):
     aux = fn.build(verts)
     verts = torch.cat([verts, verts])                   # [256, V, 3]
     B, T, P = 256, fn.T, fn.P
-    cids = torch.cat([aux.tri_corners, aux.tri_corners]).reshape(B, 3 * T)
-    pids = torch.cat([torch.cat([aux.pa, aux.pb], 1)] * 2)
+    cids = torch.cat([aux.tri_corners, aux.tri_corners]).reshape(B, 3 * T).long()
+    pids = torch.cat([torch.cat([aux.pa, aux.pb], 1)] * 2).long()
     c9 = verts[torch.arange(B, device="cuda")[:, None], cids].reshape(B, T, 9)
     gen = torch.Generator(device="cuda").manual_seed(5)
 
@@ -468,7 +463,7 @@ def phase_broad(session, model, cpu_fn):
     emit({"phase": "broad_phase", "lanes": BROAD_LANES, "identical": same,
           "valid_pairs": card.valid.sum(1).tolist(), "card_build_s": card_s,
           "saturation": {k: [c.tolist(), b] for k, (c, b) in sat.items()}})
-    if not all(same[k] for k in ("tri_corners", "pa", "pb", "valid")):
+    if not all(same[k] for k in ("corner_plan", "pair_plan", "valid")):
         raise AssertionError(f"card and CPU broad phases differ: {same}")
 
 
@@ -768,7 +763,7 @@ def phase_lane_reference(label, card_session, card_model, res, frames, x0,
                              f"value {f_rel:.3g}, gradient {g_err:.3g}")
 
 
-def kernel_entry(name, source, replaces, launches, rows, shape_keys):
+def kernel_entry(name, source, replaces, launches, rows, shape_keys, **extra):
     main = rows[0]
     entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -780,6 +775,7 @@ def kernel_entry(name, source, replaces, launches, rows, shape_keys):
     }
     if "plan_ms" in main:
         entry["plan_ms"] = main["plan_ms"]
+    entry.update(extra)
     return entry
 
 
@@ -822,7 +818,7 @@ def main() -> int:
     phase_energy_collision(session, model, frames, x0)
     res, launches, plan_builds = phase_main_path(
         "collision_on", session, model, jm, frames, x0,
-        needs=("lbs", "gather", "scatter"))
+        needs=("lbs", "gather", "scatter", "scatter_join"))
     phase_k3_amortised(scatters, launches["scatter"], plan_builds)
     phase_lane_reference("collision_on", session, model, res, frames, x0)
 
@@ -846,7 +842,8 @@ def main() -> int:
                      gathers, ("B", "N", "R", "C")),
         kernel_entry("scatter", "smplifyx_torch/csrc/gather.cu",
                      "smplifyx_tpu/ops/gather_pallas.py:111",
-                     launches["scatter"], scatters, ("B", "R", "C", "num_rows")),
+                     launches["scatter"], scatters, ("B", "R", "C", "num_rows"),
+                     join_launches=launches["scatter_join"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -69,8 +69,8 @@ def fit_settings(fields: dict) -> FitSettings:
 def collision_aux(aux: tuple, device="cuda") -> CollisionAux:
     """A batched JAX collision aux (numpy): (tri_corners [B, T, 3],
     (pa, pb) [B, P], valid [B, P], order [B, F], sorted_pack [B, F, 3]
-    f32) -> the port's CollisionAux, ids as int64, with the row plans of
-    its two gather levels."""
+    f32) -> the port's CollisionAux: the narrow phase's ids in the row plans
+    of its two gather levels, the Morton order and faces as int64."""
     dev = resolve_device(device)
     tri_corners, (pa, pb), valid, order, sorted_pack = aux
 

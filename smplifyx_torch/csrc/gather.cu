@@ -64,7 +64,6 @@ constexpr int SCATTER_THREADS = 256;  // K3: threads per tile
 constexpr int WARPS = SCATTER_THREADS / 32;
 constexpr int JOIN_THREADS = 128;     // K3's second pass
 constexpr int FILL_ROWS = 8192;       // K3: rows per zero-fill window
-constexpr int SHORT_RUN = 32;         // K3: runs it adds in position order
 constexpr int MAX_C = 16;             // K3's widest row (main path: 9)
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -146,7 +145,6 @@ k3_scatter_tiles(const int* __restrict__ plan, const float* __restrict__ values,
     constexpr int CW = S::CW, ITEMS = S::ITEMS;
     __shared__ float s_val[WARPS][32 * S::STRIDE];  // each warp's rows
     __shared__ int s_ord[WARPS][S::WARP_ROWS];      // ... and their positions
-    __shared__ int s_key[S::TILE];                  // the tile's ids
     __shared__ unsigned s_bits[FILL_ROWS / 32];     // rows an id names
     __shared__ float s_warp_val[WARPS][CW];         // each warp's inclusive total
     __shared__ int s_warp_head[WARPS];              // whether a run starts in it
@@ -194,10 +192,7 @@ k3_scatter_tiles(const int* __restrict__ plan, const float* __restrict__ values,
     // copies: every copy of the thread is in flight at once, and none
     // passes through registers.
 #pragma unroll
-    for (int i = 0; i < ITEMS; ++i) {
-        s_ord[warp][lane * ITEMS + i] = ord[i];
-        s_key[t * ITEMS + i] = key[i];
-    }
+    for (int i = 0; i < ITEMS; ++i) s_ord[warp][lane * ITEMS + i] = ord[i];
     __syncwarp();
     const int n = max(0, min(S::WARP_ROWS, R - (base + warp * S::WARP_ROWS))) * w;
 #pragma unroll
@@ -245,7 +240,7 @@ k3_scatter_tiles(const int* __restrict__ plan, const float* __restrict__ values,
     // thread waits (pend) for the scan's prefix; the others are whole.
     float run[CW], pend_val[CW];
     bool head_seen = false, pend = false, open_end = false;
-    int pend_key = 0, pend_pos = 0;
+    int pend_key = 0;
 #pragma unroll
     for (int c = 0; c < CW; ++c) run[c] = 0.0f;
 #pragma unroll
@@ -266,7 +261,6 @@ k3_scatter_tiles(const int* __restrict__ plan, const float* __restrict__ values,
                 if (!head_seen) {
                     pend = true;
                     pend_key = key[i];
-                    pend_pos = p;
 #pragma unroll
                     for (int c = 0; c < CW; ++c) pend_val[c] = run[c];
                 } else if (key[i] >= 0 && key[i] < N) {
@@ -322,35 +316,13 @@ k3_scatter_tiles(const int* __restrict__ plan, const float* __restrict__ values,
     }
     if (lane > 0) pre_f = pre_f || ef;
 
-    // The run this thread ends but did not begin.  Begun in this tile
-    // and at most SHORT_RUN entries long: added again from shared memory
-    // in position order, as index_add_ adds it.  Longer: the scan's sum.
-    // Begun in an earlier tile: this tile's share.
+    // The run this thread ends but did not begin: its sum when it began in
+    // this tile (a head lies in the prefix), else this tile's share of it.
     if (pend && pend_key >= 0 && pend_key < N) {
-        const int q = pend_pos - base;
-        int q0 = q;
-        while (q0 > 0 && q - q0 + 1 < SHORT_RUN && s_key[q0 - 1] == pend_key) --q0;
-        const bool begun = q0 > 0 ? s_key[q0 - 1] != pend_key
-                                  : base == 0 || before_tile != pend_key;
         float* row = pre_f ? dst + (size_t)pend_key * w : tile_part;
-        if (begun) {
-            float acc[CW];
 #pragma unroll
-            for (int c = 0; c < CW; ++c) acc[c] = 0.0f;
-            for (int j = q0; j <= q; ++j) {
-                const float* r = s_val[j / S::WARP_ROWS] +
-                                 (j % S::WARP_ROWS) / ITEMS * S::STRIDE + j % ITEMS * CW;
-#pragma unroll
-                for (int c = 0; c < CW; ++c) acc[c] += c < w ? r[c] : 0.0f;
-            }
-#pragma unroll
-            for (int c = 0; c < CW; ++c)
-                if (c < w) row[c] = acc[c];
-        } else {
-#pragma unroll
-            for (int c = 0; c < CW; ++c)
-                if (c < w) row[c] = pre[c] + pend_val[c];
-        }
+        for (int c = 0; c < CW; ++c)
+            if (c < w) row[c] = pre[c] + pend_val[c];
     }
     // The tile's last run, when it goes on into the next tile: its share
     // here (the whole tile when no run begins in it).
@@ -363,12 +335,11 @@ k3_scatter_tiles(const int* __restrict__ plan, const float* __restrict__ values,
 }
 
 // For each tile whose last run began in it and goes on into the next
-// tile(s): that run's sum into its row.
+// tile(s): that run's sum into its row, the tiles' shares added in order.
 template <int CT>
 __global__ void __launch_bounds__(JOIN_THREADS)
-k3_join(const int* __restrict__ plan, const float* __restrict__ values,
-        const float* __restrict__ part, float* __restrict__ out, int B,
-        int tiles, int R, int N, int C) {
+k3_join(const int* __restrict__ plan, const float* __restrict__ part,
+        float* __restrict__ out, int B, int tiles, int R, int N, int C) {
     using S = K3Shape<CT>;
     constexpr int CW = S::CW;
     const int w = width<CT>(C);
@@ -381,49 +352,16 @@ k3_join(const int* __restrict__ plan, const float* __restrict__ values,
     const int key = skey[end - 1];
     if (skey[end] != key || (base > 0 && skey[base - 1] == key)) return;
     if (key < 0 || key >= N) return;
+    const float* lane_part = part + (size_t)b * tiles * 2 * w;
     float acc[CW];
 #pragma unroll
-    for (int c = 0; c < CW; ++c) acc[c] = 0.0f;
-    // The run's extent near the edge: SHORT_RUN - 1 ids on each side.
-    int first = end - 1, last = end;
-    bool left_open = true, right_open = true;
-#pragma unroll
-    for (int m = 1; m < SHORT_RUN; ++m) {
-        const int left = end - 1 - m, right = end + m;
-        left_open = left_open && (left >= 0 ? skey[left] : ~key) == key;
-        right_open = right_open && (right < R ? skey[right] : ~key) == key;
-        if (left_open) first = left;
-        if (right_open) last = right;
-    }
-    if (!left_open && !right_open && last - first < SHORT_RUN) {
-        // At most SHORT_RUN entries: added again in position order, as
-        // index_add_ adds them.
-        const int* order = skey - R;
-        const float* vals = values + (size_t)b * R * w;
-        int rows[SHORT_RUN];
-#pragma unroll
-        for (int m = 0; m < SHORT_RUN; ++m) rows[m] = first + m <= last ? order[first + m] : 0;
-#pragma unroll
-        for (int m = 0; m < SHORT_RUN; ++m) {
-            if (first + m <= last) {
-#pragma unroll
-                for (int c = 0; c < CW; ++c)
-                    if (c < w) acc[c] += __ldg(vals + (size_t)rows[m] * w + c);
-            }
-        }
-    } else {
-        // Longer: the tiles' shares, tile by tile in order.
-        const float* lane_part = part + (size_t)b * tiles * 2 * w;
+    for (int c = 0; c < CW; ++c) acc[c] = c < w ? lane_part[(2 * k + 1) * w + c] : 0.0f;
+    for (int j = k + 1; j < tiles; ++j) {
 #pragma unroll
         for (int c = 0; c < CW; ++c)
-            if (c < w) acc[c] = lane_part[(2 * k + 1) * w + c];
-        for (int j = k + 1; j < tiles; ++j) {
-#pragma unroll
-            for (int c = 0; c < CW; ++c)
-                if (c < w) acc[c] += lane_part[2 * j * w + c];
-            const int end_j = min((j + 1) * S::TILE, R);
-            if (end_j == R || skey[end_j] != key) break;
-        }
+            if (c < w) acc[c] += lane_part[2 * j * w + c];
+        const int end_j = min((j + 1) * S::TILE, R);
+        if (end_j == R || skey[end_j] != key) break;
     }
     float* row = out + ((size_t)b * N + key) * w;
 #pragma unroll
@@ -461,7 +399,7 @@ int launch_scatter(const int* plan, const float* values, float* out,
     if (err != 0 || tiles == 1) return err;
     const int joins = B * tiles;
     k3_join<CT><<<(joins + JOIN_THREADS - 1) / JOIN_THREADS, JOIN_THREADS, 0, s>>>(
-        plan, values, part, out, B, tiles, R, N, C);
+        plan, part, out, B, tiles, R, N, C);
     return (int)cudaGetLastError();
 }
 

@@ -67,16 +67,30 @@ def synthetic_part_segm(num_faces: int, num_parts: int = 27, seed: int = 0):
 
 class CollisionAux(NamedTuple):
     """A broad-phase result reused across evaluations; every field [B, ...]
-    and lane-local, so auxes merge lane by lane.  Built by `make_aux`."""
+    and lane-local, so auxes merge lane by lane.  Built by `make_aux`.  The
+    narrow phase's ids live only in the row plans (ops/gather.py
+    `row_plan`, int32); `tri_corners`, `pa` and `pb` read them there."""
 
-    tri_corners: torch.Tensor   # [B, T, 3] corner vertex ids of unique triangles
-    pa: torch.Tensor            # [B, P] pair side A: index into tri_corners
-    pb: torch.Tensor            # [B, P] pair side B
+    corner_plan: torch.Tensor   # [B, 3, 3T] row plan of the corner vertex ids
+    pair_plan: torch.Tensor     # [B, 3, 2P] row plan of the pair sides (A, B)
     valid: torch.Tensor         # [B, P] bool
     order: torch.Tensor         # [B, F] Morton permutation of the faces
     sorted_pack: torch.Tensor   # [B, F, 3] faces in Morton order
-    corner_plan: torch.Tensor   # [B, 3, 3T] int32 row plan of tri_corners
-    pair_plan: torch.Tensor     # [B, 3, 2P] int32 row plan of cat(pa, pb)
+
+    @property
+    def tri_corners(self) -> torch.Tensor:
+        """[B, T, 3] corner vertex ids of the unique triangles."""
+        return self.corner_plan[:, 0].reshape(self.corner_plan.shape[0], -1, 3)
+
+    @property
+    def pa(self) -> torch.Tensor:
+        """[B, P] pair side A: index into tri_corners."""
+        return self.pair_plan[:, 0, :self.valid.shape[1]]
+
+    @property
+    def pb(self) -> torch.Tensor:
+        """[B, P] pair side B."""
+        return self.pair_plan[:, 0, self.valid.shape[1]:]
 
 
 def row_plans(tri_corners, pa, pb):
@@ -88,9 +102,10 @@ def row_plans(tri_corners, pa, pb):
 
 
 def make_aux(tri_corners, pa, pb, valid, order, sorted_pack) -> CollisionAux:
-    """The aux of a broad phase, with the row plans of its gather levels."""
-    return CollisionAux(tri_corners, pa, pb, valid, order, sorted_pack,
-                        *row_plans(tri_corners, pa, pb))
+    """The aux of a broad phase: the row plans of its gather levels in
+    place of the ids."""
+    return CollisionAux(*row_plans(tri_corners, pa, pb), valid, order,
+                        sorted_pack)
 
 
 def _cone_penalty_pairs(ta, tb, sigma: float, penalize_outside: bool,
@@ -193,9 +208,8 @@ class _PairGather(torch.autograd.Function):
         corner_plan, pair_plan = ctx.saved_tensors
         B, T = corner_plan.shape[0], corner_plan.shape[2] // 3
         gp = torch.cat([gta.reshape(B, -1, 9), gtb.reshape(B, -1, 9)], dim=1)
-        gc9 = scatter_add_rows(pair_plan[:, 0], gp.contiguous(), T, pair_plan)
-        dv = scatter_add_rows(corner_plan[:, 0], gc9.reshape(B, -1, 3),
-                              ctx.num_verts, corner_plan)
+        gc9 = scatter_add_rows(pair_plan, gp.contiguous(), T)
+        dv = scatter_add_rows(corner_plan, gc9.reshape(B, -1, 3), ctx.num_verts)
         return dv, None, None
 
 

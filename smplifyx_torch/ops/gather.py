@@ -2,7 +2,8 @@
 
     row_plan(ids [B, R])                                  -> plan [B, 3, R]
     gather_rows(table [B, N, C], ids [B, R])              -> [B, R, C]
-    scatter_add_rows(ids [B, R], values [B, R, C], N)     -> [B, N, C]
+    scatter_add_rows(ids [B, R] or plan [B, 3, R],
+                     values [B, R, C], N)                 -> [B, N, C]
 
 They replace the TPU kernels `smplifyx_tpu/ops/gather_pallas.py`
 (`_gather_kernel` behind `gather_rows`, `_scatter_kernel` behind
@@ -11,15 +12,17 @@ out.  On a CUDA tensor each wrapper launches its kernel in
 `csrc/gather.cu` (see the note there for the bound and the design); on a
 CPU tensor it takes its plain version, and only because the tensor lies on
 the CPU.  There is no fallback: a CUDA tensor launches the kernel or
-raises.  `gather_rows.launches` and `scatter_add_rows.launches` count
-launches, `row_plan.builds` plan builds.  Neither wrapper is
-differentiable by itself: the collision term's pair gather
-(ops/collision.py) pairs them as forward and VJP.
+raises.  `gather_rows.launches` counts K2's launches;
+`scatter_add_rows.launches` counts K3's first kernel (one per call) and
+`scatter_add_rows.join_launches` its second, which runs when a lane's
+positions span more than one tile; `row_plan.builds` counts plan builds.
+Neither wrapper is differentiable by itself: the collision term's pair
+gather (ops/collision.py) pairs them as forward and VJP.
 
 A row plan holds a lane's ids as int32, the stable order that sorts them
 and the sorted ids.  K3 reads it; the ids do not change between two broad
-phases, so the collision term builds the plan once per broad phase and
-passes it to every launch in between.
+phases, so the collision term builds the plan once per broad phase, keeps
+it as the only copy of the ids, and passes it to every launch in between.
 """
 
 from __future__ import annotations
@@ -135,33 +138,32 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _check_plan(plan, ids):
-    if plan.dtype != torch.int32 or tuple(plan.shape) != (ids.shape[0], 3,
-                                                          ids.shape[1]):
-        raise ValueError(f"scatter_add_rows: the plan must be [B, 3, R] int32 "
-                         f"for ids {tuple(ids.shape)}, got {plan.dtype} "
-                         f"{tuple(plan.shape)}")
+def _check_plan(plan, B, R):
+    if plan.dtype != torch.int32 or tuple(plan.shape) != (B, 3, R):
+        raise ValueError(f"scatter_add_rows: a plan must be [B={B}, 3, R={R}] "
+                         f"int32, got {plan.dtype} {tuple(plan.shape)}")
     if not plan.is_contiguous():
         raise ValueError("scatter_add_rows: the plan must be contiguous")
 
 
-def scatter_add_rows(ids: torch.Tensor, values: torch.Tensor, num_rows: int,
-                     plan: torch.Tensor | None = None) -> torch.Tensor:
-    """Sum-scatter values [B, R, C] f32 into [B, num_rows, C] at ids
-    [B, R] (int32 or int64), adding duplicates.  On the card the kernel
-    reads `plan`, the row plan of these ids (built here when not given),
-    and sums each row's entries in an order fixed by the ids: the result is
-    the same every run (C <= 16)."""
+def scatter_add_rows(ids: torch.Tensor, values: torch.Tensor,
+                     num_rows: int) -> torch.Tensor:
+    """Sum-scatter values [B, R, C] f32 into [B, num_rows, C] at `ids`,
+    adding duplicates.  `ids` is [B, R] (int32 or int64), or their row plan
+    [B, 3, R] (`row_plan`), which the kernel reads: given ids, it builds the
+    plan here.  On the card each row's entries add in an order fixed by the
+    ids: the result is the same every run (C <= 16)."""
     _check_values("scatter_add_rows", values)
     B, R, C = values.shape
-    _check_ids("scatter_add_rows", ids, B)
-    if ids.shape[1] != R:
-        raise ValueError(f"scatter_add_rows: {ids.shape[1]} ids for {R} rows")
-    if plan is None:
-        dev = _device_of("scatter_add_rows", ids, values)
+    if ids.dim() == 3:
+        _check_plan(ids, B, R)
+        plan, ids = ids, ids[:, 0]
     else:
-        dev = _device_of("scatter_add_rows", ids, values, plan)
-        _check_plan(plan, ids)
+        _check_ids("scatter_add_rows", ids, B)
+        if ids.shape[1] != R:
+            raise ValueError(f"scatter_add_rows: {ids.shape[1]} ids for {R} rows")
+        plan = None
+    dev = _device_of("scatter_add_rows", ids, values)
     if dev.type == "cpu":
         return scatter_add_reference(ids, values, num_rows)
     if B * R * C > _I32_MAX or B * num_rows * C > _I32_MAX:
@@ -176,16 +178,18 @@ def scatter_add_rows(ids: torch.Tensor, values: torch.Tensor, num_rows: int,
     if plan is None:
         plan = row_plan(ids)
     lib = _load()
+    tiles = lib.scatter_add_rows_tiles(R, C)
     out = torch.empty(B, num_rows, C, dtype=values.dtype, device=dev)
-    part = torch.empty(B, lib.scatter_add_rows_tiles(R, C), 2, C,
-                       dtype=values.dtype, device=dev)
+    part = torch.empty(B, tiles, 2, C, dtype=values.dtype, device=dev)
     _launch("scatter", lib.scatter_add_rows_forward, plan.data_ptr(),
             values.data_ptr(), out.data_ptr(), part.data_ptr(), B, R, C,
             num_rows, dev=dev)
     scatter_add_rows.launches += 1
+    scatter_add_rows.join_launches += int(tiles > 1)
     return out
 
 
 row_plan.builds = 0
 gather_rows.launches = 0
 scatter_add_rows.launches = 0
+scatter_add_rows.join_launches = 0

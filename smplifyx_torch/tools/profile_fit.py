@@ -8,11 +8,12 @@ and once under torch.profiler.  Prints one JSON line: the unprofiled and
 profiled wall seconds, device-busy seconds (the sum of CUDA kernel times
 in the profiled fit), the device's idle share over each of the two walls,
 kernel launches per fit, host reads per fit, the device time and share of
-each hand-written kernel (K1 `lbs_kernel`, K2 `k2_gather_rows`, K3
-`k3_scatter_tiles` and `k3_join`), the `aten::sort` calls with the device time of their
-kernels and the row plans built (two per broad phase, ops/gather.py
-`row_plan`), and the kernels that take the most device time; writes the
-profiler's table to <out>/profile_fit.txt.
+each hand-written kernel (K1 `lbs_kernel`, K2 `k2_gather_rows`, K3's two
+kernels `k3_scatter_tiles` and `k3_join`, each on its own), the
+`aten::sort` calls with the device time of their kernels and the row
+plans built (two per broad phase, ops/gather.py `row_plan`), and the
+kernels that take the most device time; writes the profiler's table to
+<out>/profile_fit.txt.
 
 The profiler's host overhead stretches the profiled wall while the kernels
 themselves keep their times, so the idle share of the fit as users run it
@@ -63,9 +64,9 @@ def main(argv=None) -> int:
     launches = sum(e.count for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     ours = {}
-    for label, symbols in (("lbs", ("lbs_kernel",)), ("gather", ("k2_gather_rows",)),
-                           ("scatter", ("k3_scatter_tiles", "k3_join"))):
-        hits = [e for e in events if any(sym in e.key for sym in symbols)]
+    for label, symbol in (("lbs", "lbs_kernel"), ("gather", "k2_gather_rows"),
+                          ("scatter", "k3_scatter_tiles"), ("scatter_join", "k3_join")):
+        hits = [e for e in events if symbol in e.key]
         ms = sum(e.self_device_time_total for e in hits) / 1e3
         ours[label] = {"count": sum(e.count for e in hits), "device_ms": ms,
                        "share": ms / 1e3 / busy if busy else None}

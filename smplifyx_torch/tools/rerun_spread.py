@@ -7,7 +7,11 @@ V=10475) twice on the card with each of three narrow phases, and prints one
 JSON line per narrow phase: the per-lane relative difference of the two
 runs' final losses (quantiles, lanes over 5%), whether the two runs ended
 bit-equal, each run's median final loss, and the messages of any operation
-without a deterministic implementation.
+without a deterministic implementation.  Then one JSON line per other
+narrow phase, pairing its first fit with the kernel's lane by lane: the
+quantiles of the per-lane final-loss ratio and the lanes on which the
+kernel ends lower, which tell a summation order that fits worse (most
+lanes one way) from one that only moves lanes to other minima (both ways).
 
   * ``kernel``: the port's pair gather (K2 forward, K3 backward, K3 a
     segmented sum over the aux's row plans);
@@ -71,13 +75,13 @@ class IndexAddCollision:
 
 def spread(session, model, jm, frames, x0):
     """Two fits of the same inputs -> (per-lane relative loss difference,
-    bit-equal x, each fit's median final loss)."""
+    bit-equal x, each fit's median final loss, the first fit's losses)."""
     a = session.fit(model, jm, frames, x0)
     b = session.fit(model, jm, frames, x0)
     torch.cuda.synchronize()
     rel = (a.loss - b.loss).abs() / b.loss.abs()
     medians = [float(r.loss.median()) for r in (a, b)]
-    return rel, bool(torch.equal(a.x, b.x)), medians
+    return rel, bool(torch.equal(a.x, b.x)), medians, a.loss
 
 
 def main(argv=None) -> int:
@@ -91,6 +95,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60).stdout.strip()
     session, model, jm, frames, x0 = build_slice(args.batch)
     kernel_fn = session.collision_fn
+    losses = {}
     for name, fn, deterministic in (
             ("kernel", kernel_fn, False),
             ("index_add", IndexAddCollision(kernel_fn), False),
@@ -99,7 +104,8 @@ def main(argv=None) -> int:
         torch.use_deterministic_algorithms(deterministic, warn_only=True)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            rel, bit_equal, medians = spread(session, model, jm, frames, x0)
+            rel, bit_equal, medians, losses[name] = spread(session, model, jm,
+                                                           frames, x0)
         torch.use_deterministic_algorithms(False)
         print(json.dumps({
             "narrow_phase": name, "card": smi, "B": int(x0.shape[0]),
@@ -114,6 +120,15 @@ def main(argv=None) -> int:
                                             for w in caught}),
         }), flush=True)
     session.collision_fn = kernel_fn
+    for name in ("index_add", "index_add_deterministic"):
+        ratio = losses[name] / losses["kernel"]
+        print(json.dumps({
+            "paired": name, "against": "kernel", "B": int(ratio.numel()),
+            "loss_ratio_quantiles": {q: float(ratio.quantile(float(q)))
+                                     for q in ("0.1", "0.5", "0.9")},
+            "lanes_kernel_lower": int((ratio > 1).sum()),
+            "lanes_equal": int((ratio == 1).sum()),
+        }), flush=True)
     return 0
 
 

@@ -88,11 +88,14 @@ def test_gather_kernel_is_bit_exact(card, B, N, R, C):
     (3, 777, 1001, 3, None), (4, 100, 3000, 3, 5), (4, 64, 3000, 9, 5)])
 def test_scatter_kernel_matches_plain_version(card, B, N, R, C, id_rows):
     _, ids, values = _rows(B, N, R, C, card, seed=R, id_rows=id_rows)
-    before = tg.scatter_add_rows.launches
+    before = tg.scatter_add_rows.launches, tg.scatter_add_rows.join_launches
     out = tg.scatter_add_rows(ids, values, N)
     ref = tg.scatter_add_reference(ids, values, N)
     torch.cuda.synchronize()
-    assert tg.scatter_add_rows.launches == before + 1
+    joined = tg._load().scatter_add_rows_tiles(R, C) > 1
+    assert (tg.scatter_add_rows.launches,
+            tg.scatter_add_rows.join_launches) == (before[0] + 1,
+                                                   before[1] + joined)
     # the plain version's index_add_ adds with atomics on the card
     scale = max(1.0, ref.abs().max().item())
     assert (out - ref).abs().max().item() <= 1e-5 * scale
@@ -133,30 +136,14 @@ def test_scatter_kernel_is_deterministic_at_every_shape(card, B, N, R, C, kind):
     else:
         _, ids, values = _rows(B, N, R, C, card, seed=R)
     plan = tg.row_plan(ids)
-    first = tg.scatter_add_rows(ids, values, N, plan)
-    again = tg.scatter_add_rows(ids, values, N, plan)
+    first = tg.scatter_add_rows(plan, values, N)
+    again = tg.scatter_add_rows(plan, values, N)
     unplanned = tg.scatter_add_rows(ids, values, N)
     ref = tg.scatter_add_reference(ids, values, N)
     torch.cuda.synchronize()
     assert torch.equal(first, again) and torch.equal(first, unplanned)
     scale = max(1.0, ref.abs().max().item())
     assert (first - ref).abs().max().item() <= 1e-5 * scale
-
-
-@pytest.mark.parametrize("B,N,R,C,id_rows", [
-    (256, 10475, 6144, 3, None), (8, 2048, 8192, 9, 300), (3, 777, 1001, 3, None),
-    (3, 300, 1001, 5, 40)])
-def test_scatter_kernel_adds_short_runs_as_index_add_does(card, B, N, R, C, id_rows):
-    """Every row with at most 32 entries equals the CPU's index_add_ bit
-    for bit: K3 adds such a run in position order."""
-    _, ids, values = _rows(B, N, R, C, card, seed=R + 2, id_rows=id_rows)
-    out = tg.scatter_add_rows(ids, values, N).cpu()
-    cpu = tg.scatter_add_reference(ids.cpu(), values.cpu(), N)
-    lanes = torch.arange(B)[:, None] * N
-    count = torch.bincount((ids.cpu() + lanes).reshape(-1), minlength=B * N)
-    short = (count <= 32).reshape(B, N)
-    assert bool(short.any())
-    assert torch.equal(out[short], cpu[short])
 
 
 def test_scatter_kernel_propagates_nan_and_drops_out_of_range_ids(card):

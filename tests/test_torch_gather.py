@@ -189,12 +189,14 @@ def test_scatter_with_a_plan_equals_without():
     for i in (torch.as_tensor(ids.astype(np.int64)), torch.as_tensor(ids)):
         v = torch.as_tensor(values)
         plan = tg.row_plan(i)
-        got = tg.scatter_add_rows(plan[:, 0], v, 40, plan)
+        got = tg.scatter_add_rows(plan, v, 40)
         assert torch.equal(got, tg.scatter_add_rows(i, v, 40))
     with pytest.raises(ValueError, match="plan"):
-        tg.scatter_add_rows(i, v, 40, plan[:, :2].contiguous())
+        tg.scatter_add_rows(plan[:, :2].contiguous(), v, 40)
     with pytest.raises(ValueError, match="plan"):
-        tg.scatter_add_rows(i, v, 40, plan.long())
+        tg.scatter_add_rows(plan.long(), v, 40)
+    with pytest.raises(ValueError, match="plan"):
+        tg.scatter_add_rows(plan[:, :, :-1].contiguous(), v, 40)
 
 
 @pytest.mark.parametrize("B,N,R,C", [(3, 777, 1001, 3), (2, 555, 2048, 9),
