@@ -88,16 +88,30 @@ def timings(**fns):
     return out
 
 
-def lbs_bound_ms(B, V, J, peak):
-    """Least time for the skinning function: the larger of its operations
-    over the FP32 peak and its bytes (each input read once, the output
-    written once) over the memory rate."""
+def _bound_ms(ops, nbytes, peak):
     flop, bw = peak
-    ops = 2.0 * B * V * J * 12 + 18.0 * B * V
-    nbytes = 4.0 * (V * J + B * J * 16 + 2 * B * V * 3)
     t_ops, t_bytes = ops / flop, nbytes / bw
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def lbs_bound_ms(B, V, J, nnz, peak):
+    """Least time for the skinning function with this W: the larger of its
+    operations (12 FMAs per lane and nonzero weight, the 3x4 epilogue)
+    over the FP32 peak and its bytes (v_posed read and the output written
+    once, A, and a 4-byte column and value per nonzero) over the memory
+    rate."""
+    ops = 2.0 * B * nnz * 12 + 18.0 * B * V
+    nbytes = 4.0 * (B * J * 16 + 2 * B * V * 3) + 8.0 * nnz
+    return _bound_ms(ops, nbytes, peak)
+
+
+def dense_bound_ms(B, V, J, peak):
+    """The same bound for a dense W (every one of the V x J weights read
+    and multiplied), as the K1 rows were held to before the column plan."""
+    ops = 2.0 * B * V * J * 12 + 18.0 * B * V
+    nbytes = 4.0 * (V * J + B * J * 16 + 2 * B * V * 3)
+    return _bound_ms(ops, nbytes, peak)
 
 
 def _event():
@@ -215,21 +229,27 @@ def reset_counts():
     for fn in launch_counters().values():
         fn.launches = 0
     launch_counters()["scatter"].join_launches = 0
+    launch_counters()["lbs"].launches_by_rows = {}
 
 
 def read_counts():
-    """Launches per wrapper; `scatter_join` counts K3's second kernel."""
+    """Launches per wrapper; `scatter_join` counts K3's second kernel,
+    `lbs_by_rows` K1's launches per vertex count V."""
     counts = {name: fn.launches for name, fn in launch_counters().items()}
     counts["scatter_join"] = launch_counters()["scatter"].join_launches
+    counts["lbs_by_rows"] = dict(launch_counters()["lbs"].launches_by_rows)
     return counts
 
 
-def check_lbs(name, W, B, peak, seed):
-    """K1 against its plain version on the card: forward, VJP, times."""
+def check_lbs(name, W, plan, B, peak, seed):
+    """K1 against its plain version on the card: forward, VJP, times; the
+    kernel with the plan bit-equal to the kernel with every column (the
+    dense loop) and to its other way of reading A."""
     import torch
 
-    from smplifyx_torch.ops.lbs import lbs_apply, lbs_reference
+    from smplifyx_torch.ops import lbs
 
+    lbs_apply, lbs_reference = lbs.lbs_apply, lbs.lbs_reference
     V, J = W.shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     A = torch.randn(B, J, 16, device="cuda", generator=gen) * 0.3
@@ -238,13 +258,21 @@ def check_lbs(name, W, B, peak, seed):
     gout = torch.randn(B, V, 3, device="cuda", generator=gen)
 
     with torch.no_grad():
-        out = lbs_apply(W, A, v)
+        out = lbs_apply(W, A, v, plan)
         ref = lbs_reference(W, A, v)
+        cols = torch.arange(J, dtype=torch.int32, device="cuda").expand(V, J)
+        full = lbs.LBSPlan(cols.contiguous(), W)
+        bit_equal = {
+            "full_plan": torch.equal(out, lbs._kernel_forward(full, A, v)),
+            "read_only_A": torch.equal(out, lbs._kernel_forward(
+                plan, A, v, lbs.A_READ_ONLY)),
+            "shared_A": torch.equal(out, lbs._kernel_forward(
+                plan, A, v, lbs.A_SHARED))}
     torch.cuda.synchronize()
     fwd_err = (out - ref).abs().max().item()
 
     Ak, vk = A.clone().requires_grad_(True), v.clone().requires_grad_(True)
-    (lbs_apply(W, Ak, vk) * gout).sum().backward()
+    (lbs_apply(W, Ak, vk, plan) * gout).sum().backward()
     Ap, vp = A.clone().requires_grad_(True), v.clone().requires_grad_(True)
     (lbs_reference(W, Ap, vp) * gout).sum().backward()
     torch.cuda.synchronize()
@@ -254,15 +282,29 @@ def check_lbs(name, W, B, peak, seed):
         grad_err[key] = (got - want).abs().max().item() / scale
 
     with torch.no_grad():
-        times = timings(kernel=lambda: lbs_apply(W, A, v),
-                        plain=lambda: lbs_reference(W, A, v),
-                        library=lambda: torch.matmul(W, A))
-    bound_ms, bound_by = lbs_bound_ms(B, V, J, peak)
+        times = timings(
+            kernel=lambda: lbs_apply(W, A, v, plan),
+            kernel_shared_A=lambda: lbs._kernel_forward(plan, A, v,
+                                                        lbs.A_SHARED),
+            kernel_read_only_A=lambda: lbs._kernel_forward(
+                plan, A, v, lbs.A_READ_ONLY),
+            plain=lambda: lbs_reference(W, A, v),
+            library=lambda: torch.matmul(W, A),
+            backward=lambda: lbs.lbs_vjp(W, A, v, gout))
+    nnz = int((W != 0).sum())
+    bound_ms, bound_by = lbs_bound_ms(B, V, J, nnz, peak)
+    dense_ms, _ = dense_bound_ms(B, V, J, peak)
     row = {"phase": "lbs_check", "shape": name, "B": B, "V": V, "J": J,
+           "K": int(plan.cols.shape[1]), "nnz": nnz,
            "fwd_max_abs_err": fwd_err, "dA_err_per_scale": grad_err["dA"],
-           "dv_err_per_scale": grad_err["dv"], **times,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "dv_err_per_scale": grad_err["dv"], "bit_equal": bit_equal,
+           **times, "bound_ms": bound_ms, "bound_by": bound_by,
+           "dense_bound_ms": dense_ms,
+           "share_of_bound": bound_ms / times["kernel_ms"]}
     emit(row)
+    if not all(bit_equal.values()):
+        raise AssertionError(f"lbs kernel launches of one function differ in "
+                             f"bits at {name}: {bit_equal}")
     if not fwd_err <= FWD_TOL:
         raise AssertionError(f"lbs forward error {fwd_err} > {FWD_TOL} at {name}")
     for key, err in grad_err.items():
@@ -277,14 +319,17 @@ def phase_lbs(model, jm, batch, peak):
     landmark subset over the doubled batch) and at a ragged one."""
     import torch
 
+    from smplifyx_torch.ops.lbs import lbs_plan
+
     gen = torch.Generator(device="cuda").manual_seed(7)
     W_ragged = torch.rand(500, 55, device="cuda", generator=gen)
     W_ragged = W_ragged / W_ragged.sum(-1, keepdim=True)
+    full = (model.lbs_weights, model.lbs_plan)
     return [
-        check_lbs("full_mesh_stages", model.lbs_weights, 2 * batch, peak, 4),
-        check_lbs("full_mesh", model.lbs_weights, batch, peak, 1),
-        check_lbs("ragged", W_ragged, 3, peak, 2),
-        check_lbs("subset", jm.sub_lbs, 2 * batch, peak, 3),
+        check_lbs("full_mesh_stages", *full, 2 * batch, peak, 4),
+        check_lbs("full_mesh", *full, batch, peak, 1),
+        check_lbs("ragged", W_ragged, lbs_plan(W_ragged), 3, peak, 2),
+        check_lbs("subset", jm.sub_lbs, jm.lbs_plan, 2 * batch, peak, 3),
     ]
 
 
@@ -626,16 +671,19 @@ def phase_main_path(label, session, model, jm, frames, x0, needs):
     first_s = time.perf_counter() - t0
 
     from smplifyx_torch.ops.gather import row_plan
+    from smplifyx_torch.ops.lbs import lbs_plan
 
     broad = count_broad_phases(session.collision_fn)
     reset_counts()
     row_plan.builds = 0
+    lbs_plan.builds = 0
     t0 = time.perf_counter()
     res = session.fit(model, jm, frames, x0)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_launches = read_counts()
     plan_builds = row_plan.builds
+    lbs_plan_builds = lbs_plan.builds
     broad = dict(broad)
     for name in broad:                  # back to the class's methods
         delattr(session.collision_fn, name)
@@ -648,6 +696,9 @@ def phase_main_path(label, session, model, jm, frames, x0, needs):
     rerun_equal = bool(torch.equal(first.x, res.x)
                        and torch.equal(first.loss, res.loss))
     B, V = x0.shape[0], model.lbs_weights.shape[0]
+    S = jm.sub_lbs.shape[0]
+    by_rows = fit_launches["lbs_by_rows"]
+    lbs_split = {"full_mesh": by_rows.get(V, 0), "subset": by_rows.get(S, 0)}
     losses = torch.cat([res.loss[None], res.camera_loss[None],
                         res.stage_losses])
     row = {
@@ -657,7 +708,12 @@ def phase_main_path(label, session, model, jm, frames, x0, needs):
         "fit_s": fit_s, "frames_per_s": B / fit_s,
         "host_reads_per_fit": res.host_reads,
         "launches_fit": fit_launches, "launches_main": main_launches,
+        "lbs_launches_fit": lbs_split,
+        "lbs_launches_main": {
+            "full_mesh": main_launches["lbs_by_rows"].get(V, 0),
+            "subset": main_launches["lbs_by_rows"].get(S, 0)},
         "broad_phases_fit": broad, "plan_builds_fit": plan_builds,
+        "lbs_plan_builds_fit": lbs_plan_builds,
         "camera_evals_max": int(res.camera_evals.max()),
         "camera_evals_median": float(res.camera_evals.float().median()),
         "stage_evals_max": res.stage_evals.amax(1).tolist(),
@@ -690,6 +746,17 @@ def phase_main_path(label, session, model, jm, frames, x0, needs):
     for name in needs:
         if fit_launches[name] <= 0:
             raise AssertionError(f"the {label} fit never launched the {name} kernel")
+    # K1 on the landmark subset in every path's fit, on the full mesh in the
+    # collision stages; nothing else; the models' plans, none built.
+    if not (lbs_split["subset"] > 0 and sum(lbs_split.values())
+            == fit_launches["lbs"]
+            and (lbs_split["full_mesh"] > 0) == (session.collision_fn
+                                                 is not None)):
+        raise AssertionError(f"the {label} fit launched K1 {lbs_split} "
+                             f"({fit_launches['lbs']} in all)")
+    if lbs_plan_builds != 0:
+        raise AssertionError(f"the {label} fit built {lbs_plan_builds} "
+                             "skinning plans; the models carry them")
     if not rerun_equal:
         raise AssertionError(f"two {label} fits of the same inputs differ "
                              f"(worst lane {float(rerun.max()):.3g})")
@@ -836,7 +903,8 @@ def main() -> int:
     emit({"kernels": [
         kernel_entry("lbs", "smplifyx_torch/csrc/lbs.cu",
                      "smplifyx_tpu/ops/lbs_pallas.py:65", launches["lbs"],
-                     lbs_rows, ("B", "V", "J")),
+                     lbs_rows, ("B", "V", "J", "K"),
+                     dense_bound_ms=lbs_rows[0]["dense_bound_ms"]),
         kernel_entry("gather", "smplifyx_torch/csrc/gather.cu",
                      "smplifyx_tpu/ops/gather_pallas.py:76", launches["gather"],
                      gathers, ("B", "N", "R", "C")),

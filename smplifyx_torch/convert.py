@@ -18,6 +18,7 @@ from smplifyx_torch.fitting.params import FitSettings
 from smplifyx_torch.models.bodymodel import SMPLXModel, model_from_arrays
 from smplifyx_torch.models.sparse import JointsModel
 from smplifyx_torch.ops.collision import CollisionAux, make_aux
+from smplifyx_torch.ops.lbs import lbs_plan
 from smplifyx_torch.priors.priors import GMMPrior
 from smplifyx_torch.utils.device import resolve_device
 
@@ -31,22 +32,29 @@ def _tensor(a, dev):
     return torch.as_tensor(a.astype(np.float32), device=dev)
 
 
-def _build(cls, fields: dict, device):
+def _build(cls, fields: dict, device, **derived):
+    """cls from `fields`, with the fields in `derived` computed from the
+    others: name -> function of the converted fields."""
     dev = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(cls):
+        if f.name in derived:
+            continue
         v = fields[f.name]
         kw[f.name] = (_tensor(v, dev) if isinstance(v, (np.ndarray, np.generic))
                       else v)
-    return cls(**kw)
+    return cls(**kw, **{name: fn(kw) for name, fn in derived.items()})
 
 
 def smplx_model(fields: dict, device="cuda") -> SMPLXModel:
+    """SMPLXModel with the column plan of its skinning weights."""
     return model_from_arrays(fields, fields["parents"], device)
 
 
 def joints_model(fields: dict, device="cuda") -> JointsModel:
-    return _build(JointsModel, fields, device)
+    """JointsModel with the column plan of its subset's skinning weights."""
+    return _build(JointsModel, fields, device,
+                  lbs_plan=lambda kw: lbs_plan(kw["sub_lbs"]))
 
 
 def gmm_prior(fields: dict, device="cuda") -> GMMPrior:

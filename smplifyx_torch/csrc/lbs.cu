@@ -1,127 +1,274 @@
-// Fused linear-blend skinning for Hopper (sm_90a), FP32 on the CUDA cores.
+// Linear-blend skinning for Hopper (sm_90a), FP32 on the CUDA cores.
 //
 // Replaces the TPU kernel smplifyx_tpu/ops/lbs_pallas.py::_kernel.
 // Computes, for every lane b and vertex v,
-//     T = sum_j W[v, j] * A[b, j, 0:12]          (the 3x4 part of the 4x4)
+//     T = sum over the plan's row v of W[v, j] * A[b, j, 0:12]
 //     out[b, v] = T[0:3, 0:3] . v_posed[b, v] + T[0:3, 3]
-// without writing the [B, V, 16] transform tensor to device memory.
+// without writing the [B, V, 16] transform tensor to device memory.  W
+// comes as its column plan (smplifyx_torch/ops/lbs.py::lbs_plan): per
+// vertex the K columns of its nonzero weights in ascending order and their
+// values, padded with columns of weight zero.
 //
-// Bound on an H100 SXM at the main path's full-mesh shape (B=128, V=10475,
-// J=55): 2*B*V*J*12 = 1.77 GFLOP of FP32 FMAs (about 26 us at 67 TFLOP/s)
-// against ~34 MB of traffic (about 10 us at 3.35 TB/s), so the FP32 pipes
-// bound it.  The design keeps those pipes fed from shared memory:
-//   * one thread per vertex of a TILE-vertex tile; the tile of W^T
-//     [J, TILE] sits in shared memory (padded to TILE+1 so the transposing
-//     store is free of bank conflicts) and is read once per lane chunk;
-//   * the 12 used columns of each lane's A[b] are staged in shared memory
-//     and read as float4 broadcasts;
-//   * each thread carries LANES lanes' 12 sums at once, so one W load
-//     feeds 12*LANES FMAs.
-// FP32 FMAs only: TF32 tensor cores would break f32 parity with the
-// reference.  The ragged V edge and the ragged lane chunk are masked.
+// Bound, for an NVIDIA H100 80GB HBM3 at a 700 W power limit (3.35 TB/s,
+// 67 TFLOP/s FP32), at the full-mesh shape B=256, V=10475, J=55 with the
+// synthetic models' 4 weights per vertex (nnz = 41,900): v_posed read and
+// out written once (64.4 MB), A (0.9 MB) and 8 bytes per nonzero (0.34 MB)
+// take 0.0196 ms; the 0.31 GFLOP take 0.005 ms.  So bytes bound it, and
+// the 93% of W's entries that are zero cost nothing.  The design:
+//   * grid = vertex tiles x lane groups.  The launcher sizes both so that
+//     the grid holds at least two blocks per SM where the shape allows
+//     (the landmark subset B=256, V=224: 32-vertex tiles of 4 lanes, 448
+//     blocks; the full mesh: 256-vertex tiles of 8 lanes, 1,312 blocks);
+//   * one thread per vertex; it loads its K (col, val) pairs once (into
+//     registers for K <= 16) and reuses them for every lane of the block;
+//   * the 12 used floats of each (lane, joint) of A are staged in shared
+//     memory with 16-byte cp.async copies (or read through the read-only
+//     path: a_path, timed against each other by chip_smoke.py);
+//   * v_posed and out are [B, V, 3]: each lane's rows of the tile are one
+//     contiguous span, copied into shared memory as the 16-byte chunks that
+//     cover it and written back the same way (whole chunks as float4,
+//     the two partial ends float by float), so no 12-byte row splits a
+//     transaction.  The result goes back into the same shared slots.
+// The sum runs over the plan's row in order with fmaf, and the epilogue is
+// the dense kernel's expression (lbs_reference's, in f32): a skipped zero
+// weight would add fmaf(0, a, acc) == acc (A finite), so the output equals
+// a dense loop over all J columns bit for bit.  FP32
+// only: TF32 tensor cores would break f32 parity with the reference.
+//
+// Shared memory is the only limit on J: lanes * J * 48 bytes of A plus
+// lanes * (3 * tile + 4) * 4 bytes of rows must fit what a block may opt
+// into (227 KB on an H100: J <= 4,834 at one lane of 32 vertices, which
+// lbs_max_joints reports).  The launcher halves lanes, then the tile,
+// until the block fits.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE = 128;          // vertices per block (= threads)
-constexpr int LANES = 4;           // lanes accumulated together per thread
-constexpr int LANES_PER_BLOCK = 8; // lanes one block walks through
-constexpr int MAX_J = 64;          // shared memory is sized for J <= 64
+constexpr int MIN_TILE = 32;
+constexpr int MAX_TILE = 256;
+constexpr int MAX_LANES = 8;
+constexpr int MAX_GRID_Y = 65535;
+constexpr int BLOCKS_PER_SM = 2;
 
-__host__ __device__ inline int wt_floats(int J) {
-    // W^T tile, rounded up to 4 floats so the A stage stays 16-byte aligned.
-    return ((J * (TILE + 1)) + 3) & ~3;
+__host__ __device__ inline int row_floats(int tile) { return 3 * tile + 4; }
+
+__device__ inline void cp_async16(float* smem, const float* gmem) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(s), "l"(gmem));
 }
 
-__global__ void __launch_bounds__(TILE)
-lbs_kernel(const float* __restrict__ W, const float* __restrict__ A,
-           const float* __restrict__ v, float* __restrict__ out,
-           int B, int V, int J) {
+__device__ inline void cp_async_wait_all() {
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
+                 ::: "memory");
+}
+
+// KR > 0: the plan's row in registers (K <= KR); KR == 0: read in the loop.
+template <int KR, bool STAGE_A>
+__global__ void lbs_kernel(const int* __restrict__ cols,
+                           const float* __restrict__ vals,
+                           const float* __restrict__ A,
+                           const float* __restrict__ v,
+                           float* __restrict__ out,
+                           int B, int V, int J, int K, int lanes) {
     extern __shared__ __align__(16) float smem[];
-    float* wt = smem;                    // [J][TILE + 1]
-    float* as = smem + wt_floats(J);     // [LANES][J][12]
-
+    const int tile = blockDim.x;
     const int t = threadIdx.x;
-    const int v0 = blockIdx.x * TILE;
-    const int vi = v0 + t;
+    const int v0 = blockIdx.x * tile;
+    const int nv = min(tile, V - v0);
+    const int b0 = blockIdx.y * lanes;
+    const int nl = min(lanes, B - b0);
+    float* as = smem;                                   // [lanes][J][12]
+    float* rows = smem + (STAGE_A ? lanes * J * 12 : 0);  // [lanes][row_floats]
+    const int rf = row_floats(tile);
+    const long long total = (long long)B * V * 3;
 
-    // W rows v0..v0+TILE are contiguous in memory: read them coalesced and
-    // store transposed.
-    for (int idx = t; idx < TILE * J; idx += TILE) {
-        const int r = idx / J;
-        const int j = idx - r * J;
-        const int vv = v0 + r;
-        wt[j * (TILE + 1) + r] = (vv < V) ? W[(size_t)vv * J + j] : 0.0f;
-    }
-
-    const int b_begin = blockIdx.y * LANES_PER_BLOCK;
-    const int b_end = min(B, b_begin + LANES_PER_BLOCK);
-    for (int b0 = b_begin; b0 < b_end; b0 += LANES) {
-        const int nl = min(LANES, b_end - b0);
-        __syncthreads();  // W^T stored; the previous chunk's A reads done
-        for (int idx = t; idx < LANES * J * 12; idx += TILE) {
-            const int l = idx / (J * 12);
-            const int rem = idx - l * (J * 12);
-            const int j = rem / 12;
-            const int k = rem - j * 12;
-            as[idx] = (l < nl) ? A[((size_t)(b0 + l) * J + j) * 16 + k] : 0.0f;
+    if constexpr (STAGE_A) {
+        for (int i = t; i < nl * J * 3; i += tile) {
+            const int lj = i / 3;                       // l * J + j
+            const int q = i - 3 * lj;
+            cp_async16(as + lj * 12 + 4 * q,
+                       A + ((long long)b0 * J + lj) * 16 + 4 * q);
         }
-        __syncthreads();
-        if (vi < V) {
-            float acc[LANES][12];
+    }
+    // Lane l's rows v0 .. v0+nv are the floats [s, s + 3 nv); chunk c0 + c
+    // lands at rows[l][4 c], so the span starts at offset s & 3.
+    for (int l = 0; l < nl; ++l) {
+        const long long s = ((long long)(b0 + l) * V + v0) * 3;
+        const long long c0 = s >> 2;
+        const int chunks = (int)(((s + 3 * nv + 3) >> 2) - c0);
+        float* row = rows + l * rf;
+        for (int c = t; c < chunks; c += tile) {
+            const long long g = (c0 + c) * 4;
+            if (g + 4 <= total) {
+                cp_async16(row + 4 * c, v + g);
+            } else {
+                for (int e = 0; g + e < total; ++e) row[4 * c + e] = v[g + e];
+            }
+        }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    if (t < nv) {
+        const int* pc = cols + (long long)(v0 + t) * K;
+        const float* pw = vals + (long long)(v0 + t) * K;
+        int cj[KR > 0 ? KR : 1];
+        float cw[KR > 0 ? KR : 1];
 #pragma unroll
-            for (int l = 0; l < LANES; ++l)
+        for (int k = 0; k < KR; ++k) {
+            cj[k] = k < K ? pc[k] : 0;
+            cw[k] = k < K ? pw[k] : 0.0f;
+        }
+        for (int l = 0; l < nl; ++l) {
+            float T[12];
 #pragma unroll
-                for (int k = 0; k < 12; ++k) acc[l][k] = 0.0f;
-            for (int j = 0; j < J; ++j) {
-                const float w = wt[j * (TILE + 1) + t];
-#pragma unroll
-                for (int l = 0; l < LANES; ++l) {
+            for (int k = 0; k < 12; ++k) T[k] = 0.0f;
+            auto add = [&](int j, float w) {
+                float4 a0, a1, a2;
+                if constexpr (STAGE_A) {
                     const float4* a =
                         reinterpret_cast<const float4*>(as + (l * J + j) * 12);
-                    const float4 a0 = a[0], a1 = a[1], a2 = a[2];
-                    acc[l][0] = fmaf(w, a0.x, acc[l][0]);
-                    acc[l][1] = fmaf(w, a0.y, acc[l][1]);
-                    acc[l][2] = fmaf(w, a0.z, acc[l][2]);
-                    acc[l][3] = fmaf(w, a0.w, acc[l][3]);
-                    acc[l][4] = fmaf(w, a1.x, acc[l][4]);
-                    acc[l][5] = fmaf(w, a1.y, acc[l][5]);
-                    acc[l][6] = fmaf(w, a1.z, acc[l][6]);
-                    acc[l][7] = fmaf(w, a1.w, acc[l][7]);
-                    acc[l][8] = fmaf(w, a2.x, acc[l][8]);
-                    acc[l][9] = fmaf(w, a2.y, acc[l][9]);
-                    acc[l][10] = fmaf(w, a2.z, acc[l][10]);
-                    acc[l][11] = fmaf(w, a2.w, acc[l][11]);
+                    a0 = a[0]; a1 = a[1]; a2 = a[2];
+                } else {
+                    const float4* a = reinterpret_cast<const float4*>(
+                        A + ((long long)(b0 + l) * J + j) * 16);
+                    a0 = __ldg(a); a1 = __ldg(a + 1); a2 = __ldg(a + 2);
                 }
-            }
+                T[0] = fmaf(w, a0.x, T[0]);
+                T[1] = fmaf(w, a0.y, T[1]);
+                T[2] = fmaf(w, a0.z, T[2]);
+                T[3] = fmaf(w, a0.w, T[3]);
+                T[4] = fmaf(w, a1.x, T[4]);
+                T[5] = fmaf(w, a1.y, T[5]);
+                T[6] = fmaf(w, a1.z, T[6]);
+                T[7] = fmaf(w, a1.w, T[7]);
+                T[8] = fmaf(w, a2.x, T[8]);
+                T[9] = fmaf(w, a2.y, T[9]);
+                T[10] = fmaf(w, a2.z, T[10]);
+                T[11] = fmaf(w, a2.w, T[11]);
+            };
+            if constexpr (KR > 0) {
 #pragma unroll
-            for (int l = 0; l < LANES; ++l) {
-                if (l < nl) {
-                    const size_t o = ((size_t)(b0 + l) * V + vi) * 3;
-                    const float x = v[o], y = v[o + 1], z = v[o + 2];
-                    const float* T = acc[l];
-                    out[o] = T[0] * x + T[1] * y + T[2] * z + T[3];
-                    out[o + 1] = T[4] * x + T[5] * y + T[6] * z + T[7];
-                    out[o + 2] = T[8] * x + T[9] * y + T[10] * z + T[11];
-                }
+                for (int k = 0; k < KR; ++k)
+                    if (k < K) add(cj[k], cw[k]);
+            } else {
+                for (int k = 0; k < K; ++k) add(pc[k], pw[k]);
+            }
+            const long long s = ((long long)(b0 + l) * V + v0) * 3;
+            float* p = rows + l * rf + (int)(s & 3) + 3 * t;
+            const float x = p[0], y = p[1], z = p[2];
+            p[0] = T[0] * x + T[1] * y + T[2] * z + T[3];
+            p[1] = T[4] * x + T[5] * y + T[6] * z + T[7];
+            p[2] = T[8] * x + T[9] * y + T[10] * z + T[11];
+        }
+    }
+    __syncthreads();
+
+    // Whole chunks inside the span as float4; the partial ends (shared with
+    // the neighbouring tile or lane) float by float.
+    for (int l = 0; l < nl; ++l) {
+        const long long s = ((long long)(b0 + l) * V + v0) * 3;
+        const long long e = s + 3 * nv;
+        const long long c0 = s >> 2;
+        const int chunks = (int)(((e + 3) >> 2) - c0);
+        const float* row = rows + l * rf;
+        for (int c = t; c < chunks; c += tile) {
+            const long long g = (c0 + c) * 4;
+            if (g >= s && g + 4 <= e) {
+                *reinterpret_cast<float4*>(out + g) =
+                    *reinterpret_cast<const float4*>(row + 4 * c);
+            } else {
+                for (int q = 0; q < 4; ++q)
+                    if (g + q >= s && g + q < e) out[g + q] = row[4 * c + q];
             }
         }
     }
+}
+
+size_t shmem_bytes(int tile, int lanes, int J, bool stage) {
+    return sizeof(float) * ((size_t)(stage ? lanes * J * 12 : 0)
+                            + (size_t)lanes * row_floats(tile));
+}
+
+int device_attribute(cudaDeviceAttr attr) {
+    int dev = 0, value = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&value, attr, dev);
+    return value;
+}
+
+template <int KR, bool STAGE_A>
+int launch(const int* cols, const float* vals, const float* A, const float* v,
+           float* out, int B, int V, int J, int K, int tile, int lanes,
+           size_t shmem, cudaStream_t stream) {
+    auto kernel = lbs_kernel<KR, STAGE_A>;
+    if (shmem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const dim3 grid((V + tile - 1) / tile, (B + lanes - 1) / lanes);
+    kernel<<<grid, tile, shmem, stream>>>(cols, vals, A, v, out, B, V, J, K,
+                                          lanes);
+    return (int)cudaGetLastError();
+}
+
+template <bool STAGE_A>
+int dispatch(const int* cols, const float* vals, const float* A, const float* v,
+             float* out, int B, int V, int J, int K, int tile, int lanes,
+             size_t shmem, cudaStream_t stream) {
+#define LBS_LAUNCH(KR) launch<KR, STAGE_A>(cols, vals, A, v, out, B, V, J, K, \
+                                           tile, lanes, shmem, stream)
+    if (K <= 4) return LBS_LAUNCH(4);
+    if (K <= 8) return LBS_LAUNCH(8);
+    if (K <= 16) return LBS_LAUNCH(16);
+    return LBS_LAUNCH(0);
+#undef LBS_LAUNCH
 }
 
 }  // namespace
 
-// W [V, J], A [B, J, 16], v [B, V, 3], out [B, V, 3]; all f32, contiguous,
-// on the current device.  Launches on `stream` and returns the launch's
-// cudaError_t (0 on success); the caller raises on anything else.
-extern "C" int lbs_forward(const float* W, const float* A, const float* v,
-                           float* out, int B, int V, int J, void* stream) {
+// The widest J the kernel takes: one lane of the smallest tile, A staged.
+extern "C" int lbs_max_joints() {
+    const long long room =
+        (long long)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin)
+        - (long long)sizeof(float) * row_floats(MIN_TILE);
+    return (int)(room / (12 * sizeof(float)));
+}
+
+// cols [V, K] int32, vals [V, K], A [B, J, 16], v [B, V, 3], out [B, V, 3];
+// f32, contiguous, A and v 16-byte aligned, on the current device.
+// a_path: 0 stages A in shared memory, 1 reads it through the read-only
+// path, -1 lets the launcher choose.  Launches on `stream` and returns the
+// launch's cudaError_t (0 on success); the caller raises on anything else.
+extern "C" int lbs_forward(const int* cols, const float* vals, const float* A,
+                           const float* v, float* out, int B, int V, int J,
+                           int K, int a_path, void* stream) {
     if (B <= 0 || V <= 0) return 0;
-    if (J <= 0 || J > MAX_J) return (int)cudaErrorInvalidValue;
-    const dim3 grid((V + TILE - 1) / TILE,
-                    (B + LANES_PER_BLOCK - 1) / LANES_PER_BLOCK);
-    const size_t shmem = (size_t)(wt_floats(J) + LANES * J * 12) * sizeof(float);
-    lbs_kernel<<<grid, TILE, shmem, (cudaStream_t)stream>>>(W, A, v, out, B, V, J);
-    return (int)cudaGetLastError();
+    if (J <= 0 || K <= 0 || K > J) return (int)cudaErrorInvalidValue;
+    const bool stage = a_path != 1;
+    int tile = MAX_TILE;
+    while (tile > MIN_TILE && tile * 32 > V) tile /= 2;
+    const int tiles = (V + tile - 1) / tile;
+    const int want = BLOCKS_PER_SM
+        * device_attribute(cudaDevAttrMultiProcessorCount);
+    int lanes = MAX_LANES;
+    while (lanes > 1 && (long long)tiles * ((B + lanes - 1) / lanes) < want)
+        lanes /= 2;
+    const size_t room =
+        (size_t)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+    while (shmem_bytes(tile, lanes, J, stage) > room) {
+        if (lanes > 1) lanes /= 2;
+        else if (tile > MIN_TILE) tile /= 2;
+        else return (int)cudaErrorInvalidValue;
+    }
+    if ((B + lanes - 1) / lanes > MAX_GRID_Y) return (int)cudaErrorInvalidValue;
+    const size_t shmem = shmem_bytes(tile, lanes, J, stage);
+    const cudaStream_t st = (cudaStream_t)stream;
+    return stage ? dispatch<true>(cols, vals, A, v, out, B, V, J, K, tile,
+                                  lanes, shmem, st)
+                 : dispatch<false>(cols, vals, A, v, out, B, V, J, K, tile,
+                                   lanes, shmem, st);
 }

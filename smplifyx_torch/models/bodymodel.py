@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from smplifyx_torch.ops.lbs import LBSPlan, lbs_plan
 from smplifyx_torch.utils.device import resolve_device
 from smplifyx_torch.utils.tensors import TensorFields
 
@@ -73,6 +74,7 @@ class SMPLXModel(TensorFields):
     posedirs: torch.Tensor          # [P, V * 3]
     J_regressor: torch.Tensor       # [J, V]
     lbs_weights: torch.Tensor       # [V, J]
+    lbs_plan: LBSPlan               # column plan of lbs_weights (kernel K1)
     faces: torch.Tensor             # [F, 3]
     left_hand_components: torch.Tensor   # [C, 45]
     right_hand_components: torch.Tensor  # [C, 45]
@@ -107,12 +109,14 @@ _INDEX_FIELDS = ("faces", "extra_joint_vids", "lmk_faces_idx",
 
 def model_from_arrays(arrays: dict, parents, device="cuda") -> SMPLXModel:
     """SMPLXModel from numpy arrays keyed by field name (extra keys, such as
-    the JAX package's extra_lmk_matrix, are ignored)."""
+    the JAX package's extra_lmk_matrix, are ignored), with the column plan
+    of its skinning weights."""
     dev = resolve_device(device)
     parents = tuple(int(p) for p in parents)
     kw = {}
     for f in dataclasses.fields(SMPLXModel):
-        if f.name in ("parents", "num_verts", "num_joints", "neck_kin_chain"):
+        if f.name in ("parents", "num_verts", "num_joints", "neck_kin_chain",
+                      "lbs_plan"):
             continue
         a = np.asarray(arrays[f.name])
         dtype = torch.int64 if f.name in _INDEX_FIELDS else torch.float32
@@ -120,7 +124,8 @@ def model_from_arrays(arrays: dict, parents, device="cuda") -> SMPLXModel:
             a.astype(np.int64 if dtype == torch.int64 else np.float32)
         ).to(dev)
     return SMPLXModel(
-        **kw, parents=parents, num_verts=int(kw["v_template"].shape[0]),
+        **kw, lbs_plan=lbs_plan(kw["lbs_weights"]), parents=parents,
+        num_verts=int(kw["v_template"].shape[0]),
         num_joints=len(parents), neck_kin_chain=_neck_kin_chain(parents),
     )
 

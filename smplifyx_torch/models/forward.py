@@ -215,7 +215,8 @@ def smplx_forward(
     vertices = None
     joints_out = posed_joints
     if return_verts:
-        vertices = lbs_apply(model.lbs_weights, A.reshape(B, J, 16), v_posed)
+        vertices = lbs_apply(model.lbs_weights, A.reshape(B, J, 16), v_posed,
+                             model.lbs_plan)
         parts = [posed_joints, vertices[:, model.extra_joint_vids]]
         if model.lmk_faces_idx.shape[0] > 0:
             tri = vertices[:, model.faces[model.lmk_faces_idx]]  # [B, 51, 3, 3]

@@ -24,7 +24,7 @@ from smplifyx_torch.models.forward import (
     _head_yaw_bucket,
     _rigid_transform_chain,
 )
-from smplifyx_torch.ops.lbs import lbs_apply
+from smplifyx_torch.ops.lbs import LBSPlan, lbs_apply, lbs_plan
 from smplifyx_torch.ops.rotation import batch_rodrigues
 from smplifyx_torch.utils.tensors import TensorFields
 
@@ -39,6 +39,7 @@ class JointsModel(TensorFields):
     sub_shapedirs: torch.Tensor  # [S, 3, K+E]
     sub_posedirs: torch.Tensor  # [P, S*3]
     sub_lbs: torch.Tensor       # [S, J]
+    lbs_plan: LBSPlan           # column plan of sub_lbs (kernel K1)
     left_hand_components: torch.Tensor
     right_hand_components: torch.Tensor
     left_hand_mean: torch.Tensor
@@ -71,13 +72,15 @@ def build_joints_model(model: SMPLXModel) -> JointsModel:
     jr_dirs = torch.einsum("jv,vck->jck", model.J_regressor, shape_dirs)
     sub_cols = (subset[:, None] * 3
                 + torch.arange(3, device=subset.device)[None]).reshape(-1)
+    sub_lbs = model.lbs_weights[subset].contiguous()
     return JointsModel(
         jr_template=jr_template,
         jr_dirs=jr_dirs,
         sub_template=model.v_template[subset],
         sub_shapedirs=shape_dirs[subset],
         sub_posedirs=model.posedirs[:, sub_cols].contiguous(),
-        sub_lbs=model.lbs_weights[subset].contiguous(),
+        sub_lbs=sub_lbs,
+        lbs_plan=lbs_plan(sub_lbs),
         left_hand_components=model.left_hand_components,
         right_hand_components=model.right_hand_components,
         left_hand_mean=model.left_hand_mean,
@@ -122,7 +125,8 @@ def joints_forward(
     v_shaped = jm.sub_template + torch.einsum("bk,vck->bvc", coeffs,
                                               jm.sub_shapedirs)
     v_posed = v_shaped + (pose_feature @ jm.sub_posedirs).reshape(B, S, 3)
-    verts_sub = lbs_apply(jm.sub_lbs, A.reshape(B, J, 16), v_posed)
+    verts_sub = lbs_apply(jm.sub_lbs, A.reshape(B, J, 16), v_posed,
+                          jm.lbs_plan)
 
     parts = [posed_joints, verts_sub[:, jm.extra_idx]]
     if jm.lmk_tri_sub.shape[0] > 0:

@@ -11,17 +11,21 @@ import torch
 class TensorFields:
     """Mixin for dataclasses whose tensor fields move and map together.
 
-    Non-tensor fields (static metadata such as parent tuples) are kept as
+    Fields that are TensorFields themselves map with them; other
+    non-tensor fields (static metadata such as parent tuples) are kept as
     they are.
     """
 
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]):
         """A copy with fn applied to every tensor field."""
-        return dataclasses.replace(self, **{
-            f.name: fn(getattr(self, f.name))
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)
-        })
+        out = {}
+        for f in dataclasses.fields(self):
+            value = getattr(self, f.name)
+            if isinstance(value, torch.Tensor):
+                out[f.name] = fn(value)
+            elif isinstance(value, TensorFields):
+                out[f.name] = value.map(fn)
+        return dataclasses.replace(self, **out)
 
     def to(self, device):
         return self.map(lambda t: t.to(device))

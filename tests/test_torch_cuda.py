@@ -23,9 +23,13 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(B, V, J, dev, seed):
+def _inputs(B, V, J, dev, seed, nnz=None):
+    """W with `nnz` nonzero weights per row (all J when None), A, v_posed."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     W = torch.rand(V, J, device=dev, generator=gen)
+    if nnz is not None:
+        keep = torch.rand(V, J, device=dev, generator=gen).argsort(1)[:, :nnz]
+        W = torch.zeros_like(W).scatter_(1, keep, W.gather(1, keep))
     W = W / W.sum(-1, keepdim=True)
     A = torch.randn(B, J, 16, device=dev, generator=gen) * 0.3
     A[..., [0, 5, 10, 15]] += 1.0
@@ -33,33 +37,75 @@ def _inputs(B, V, J, dev, seed):
     return W, A, v
 
 
-@pytest.mark.parametrize("B,V,J", [(128, 10475, 55), (3, 500, 55),
-                                   (256, 220, 55), (5, 129, 24), (1, 1, 64)])
-def test_lbs_kernel_matches_plain_version(card, B, V, J):
-    W, A, v = _inputs(B, V, J, card, seed=B + V)
-    before = tlbs.lbs_apply.launches
+def _full_plan(W):
+    """Every column of every row: the kernel then runs the dense loop."""
+    V, J = W.shape
+    cols = torch.arange(J, dtype=torch.int32, device=W.device).expand(V, J)
+    return tlbs.LBSPlan(cols.contiguous(), W)
+
+
+# The main path's shapes (full mesh over the doubled batch and in
+# recover_outputs, the landmark subset), a dense ragged W, V not a tile
+# multiple with a single lane, and other widths.
+LBS_SHAPES = [(256, 10475, 55, 4), (128, 10475, 55, 4), (256, 224, 55, 4),
+              (3, 500, 55, None), (1, 97, 55, 4), (5, 129, 24, None),
+              (1, 1, 64, None), (4, 300, 55, 12)]
+
+
+@pytest.mark.parametrize("B,V,J,nnz", LBS_SHAPES)
+def test_lbs_kernel_matches_plain_version(card, B, V, J, nnz):
+    W, A, v = _inputs(B, V, J, card, seed=B + V, nnz=nnz)
+    plan = tlbs.lbs_plan(W)
+    before = tlbs.lbs_apply.launches, tlbs.lbs_plan.builds
     Ak, vk = A.clone().requires_grad_(True), v.clone().requires_grad_(True)
-    out = tlbs.lbs_apply(W, Ak, vk)
+    out = tlbs.lbs_apply(W, Ak, vk, plan)
     gout = torch.randn_like(out)
     (out * gout).sum().backward()
     Ap, vp = A.clone().requires_grad_(True), v.clone().requires_grad_(True)
     ref = tlbs.lbs_reference(W, Ap, vp)
     (ref * gout).sum().backward()
     torch.cuda.synchronize()
-    assert tlbs.lbs_apply.launches == before + 1
+    assert (tlbs.lbs_apply.launches, tlbs.lbs_plan.builds) == (before[0] + 1,
+                                                               before[1])
     # f32 sums over J in another order
     assert (out - ref).abs().max().item() <= 1e-5
     for got, want in ((Ak.grad, Ap.grad), (vk.grad, vp.grad)):
         scale = max(1.0, want.abs().max().item())
         assert (got - want).abs().max().item() <= 1e-4 * scale
+    # given no plan, the wrapper builds one
+    assert torch.equal(tlbs.lbs_apply(W, A, v), out.detach())
+    assert tlbs.lbs_plan.builds == before[1] + 1
+
+
+@pytest.mark.parametrize("B,V,J,nnz", [(256, 10475, 55, 4), (128, 10475, 55, 4),
+                                       (256, 224, 55, 4), (3, 500, 55, 7),
+                                       (1, 97, 55, 4)])
+def test_lbs_kernel_skipping_zeros_changes_no_bit(card, B, V, J, nnz):
+    """The sparse plan, the full plan (the dense loop over every column) and
+    both ways of reading A give the same bits."""
+    W, A, v = _inputs(B, V, J, card, seed=V + 1, nnz=nnz)
+    sparse = tlbs.lbs_plan(W)
+    assert sparse.cols.shape[1] == nnz
+    outs = [tlbs._kernel_forward(plan, A, v, a_path)
+            for plan in (sparse, _full_plan(W))
+            for a_path in (tlbs.A_SHARED, tlbs.A_READ_ONLY)]
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        assert torch.equal(outs[0], other)
 
 
 def test_lbs_kernel_refuses_mixed_devices_and_wide_j(card):
     W, A, v = _inputs(2, 50, 55, card, seed=0)
     with pytest.raises(ValueError):
         tlbs.lbs_apply(W.cpu(), A, v)
-    W, A, v = _inputs(2, 50, 65, card, seed=0)
-    with pytest.raises(ValueError, match="J <= 64"):
+    plan = tlbs.lbs_plan(W)
+    with pytest.raises(ValueError, match="share one"):
+        tlbs.lbs_apply(W, A, v, plan.map(lambda t: t.cpu()))
+    with pytest.raises(ValueError, match="plan"):
+        tlbs.lbs_apply(W, A, v, tlbs.lbs_plan(W[:49]))
+    wide = tlbs._load().lbs_max_joints() + 1
+    W, A, v = _inputs(2, 50, wide, card, seed=0, nnz=4)
+    with pytest.raises(ValueError, match="J <="):
         tlbs.lbs_apply(W, A, v)
 
 

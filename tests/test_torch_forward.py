@@ -19,6 +19,7 @@ from smplifyx_torch import convert
 from smplifyx_torch.models import bodymodel as tbody
 from smplifyx_torch.models import forward as tfwd
 from smplifyx_torch.models import sparse as tsparse
+from smplifyx_torch.ops.lbs import lbs_plan
 
 from tests._jit import jit_forward
 
@@ -205,6 +206,8 @@ def test_load_body_model_npz_matches(tmp_path):
         a = getattr(got, f.name)
         if isinstance(a, torch.Tensor):
             np.testing.assert_array_equal(a.numpy(), ref[f.name], err_msg=f.name)
+        elif f.name == "lbs_plan":     # the port's own: K1's column plan
+            assert a == lbs_plan(torch.tensor(ref["lbs_weights"]))
         else:
             assert tuple(a) == tuple(ref[f.name]) if isinstance(a, tuple) \
                 else a == ref[f.name], f.name
