@@ -14,42 +14,60 @@
 // synthetic models' 4 weights per vertex (nnz = 41,900): v_posed read and
 // out written once (64.4 MB), A (0.9 MB) and 8 bytes per nonzero (0.34 MB)
 // take 0.0196 ms; the 0.31 GFLOP take 0.005 ms.  So bytes bound it, and
-// the 93% of W's entries that are zero cost nothing.  The design:
-//   * grid = vertex tiles x lane groups.  The launcher sizes both so that
-//     the grid holds at least two blocks per SM where the shape allows
-//     (the landmark subset B=256, V=224: 32-vertex tiles of 4 lanes, 448
-//     blocks; the full mesh: 256-vertex tiles of 8 lanes, 1,312 blocks);
-//   * one thread per vertex; it loads its K (col, val) pairs once (into
-//     registers for K <= 16) and reuses them for every lane of the block;
+// the 93% of W's entries that are zero cost nothing.  Inside the SM every
+// output reads 48 floats of A (K=4 joints x 12) from shared memory, so the
+// reads of A must not conflict on banks.  The design:
+//   * grid = vertex chunks x lane groups, in one wave.  The launcher picks
+//     the lanes of a block so that one tile per block would give at least
+//     two blocks per SM where the shape allows, then cuts the vertices into
+//     as many chunks as the SMs hold such blocks at once (the landmark
+//     subset B=256, V=224: 4 lanes, one 32-vertex tile per block, 448
+//     blocks; the full mesh at B=256: 8 lanes, 16 chunks of 655 vertices,
+//     512 blocks, 4 on an SM).  A block stages A once and walks its chunk
+//     in tiles of up to 128 vertices through STAGES buffers: the next
+//     tile's rows and plan load while this one is summed and stored;
+//   * a block of 32 x lanes threads; consecutive threads carry the block's
+//     lanes of one vertex, so the 8 threads of a quarter-warp read the same
+//     joints of 8 lanes.  A lane's slab of A has an odd number of 16-byte
+//     words, so those 8 float4 reads fall on 8 different bank groups: no
+//     bank conflict, whatever joints the vertex has;
+//   * the tile's span of the plan is staged with its rows; each thread
+//     reads its vertex's K (col, val) pairs once, into registers for
+//     K <= 16 (as int4/float4 when K is 4, 8 or 16), and the quarter-warp's
+//     threads read the same pairs, which shared memory broadcasts;
 //   * the 12 used floats of each (lane, joint) of A are staged in shared
 //     memory with 16-byte cp.async copies (or read through the read-only
 //     path: a_path, timed against each other by chip_smoke.py);
 //   * v_posed and out are [B, V, 3]: each lane's rows of the tile are one
 //     contiguous span, copied into shared memory as the 16-byte chunks that
-//     cover it and written back the same way (whole chunks as float4,
-//     the two partial ends float by float), so no 12-byte row splits a
-//     transaction.  The result goes back into the same shared slots.
+//     cover it and written back the same way (whole chunks as float4, the
+//     two partial ends word by word), a warp per lane, so no 12-byte row
+//     splits a transaction.  The result goes back into the same slots.
 // The sum runs over the plan's row in order with fmaf, and the epilogue is
 // the dense kernel's expression (lbs_reference's, in f32): a skipped zero
 // weight would add fmaf(0, a, acc) == acc (A finite), so the output equals
-// a dense loop over all J columns bit for bit.  FP32
-// only: TF32 tensor cores would break f32 parity with the reference.
+// a dense loop over all J columns bit for bit.  FP32 only: TF32 tensor
+// cores would break f32 parity with the reference.
 //
-// Shared memory is the only limit on J: lanes * J * 48 bytes of A plus
-// lanes * (3 * tile + 4) * 4 bytes of rows must fit what a block may opt
-// into (227 KB on an H100: J <= 4,834 at one lane of 32 vertices, which
+// Shared memory is the only limit on J: lanes x (12 J + 4) floats of A
+// plus STAGES buffers of lanes x (3 x tile + 4) floats of rows and, for
+// K <= 16, 2 x (tile x 16 + 4) of plan must fit what a block may opt into
+// (227 KB on an H100: J <= 4,653 at one lane of 32 vertices, which
 // lbs_max_joints reports).  The launcher halves lanes, then the tile,
 // until the block fits.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int MIN_TILE = 32;
-constexpr int MAX_TILE = 256;
+constexpr int MAX_TILE = 128;
 constexpr int MAX_LANES = 8;
 constexpr int MAX_GRID_Y = 65535;
 constexpr int BLOCKS_PER_SM = 2;
+constexpr int STAGES = 2;
 
 __host__ __device__ inline int row_floats(int tile) { return 3 * tile + 4; }
 
@@ -59,138 +77,241 @@ __device__ inline void cp_async16(float* smem, const float* gmem) {
                  :: "r"(s), "l"(gmem));
 }
 
-__device__ inline void cp_async_wait_all() {
-    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
-                 ::: "memory");
+__device__ inline void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// KR > 0: the plan's row in registers (K <= KR); KR == 0: read in the loop.
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ inline void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Floats of one lane's slab of A: 12 per joint, rounded to an odd number
+// of float4 words.
+__host__ __device__ inline int a_stride(int J) {
+    return 4 * (3 * J + ((3 * J) % 2 == 0));
+}
+
+// Floats of the plan's staged span per buffer (cols or vals): K <= KR
+// entries for each of `tile` vertices, plus the span's offset.
+__host__ __device__ inline int plan_floats(int tile, int KR) {
+    return KR > 0 ? tile * KR + 4 : 0;
+}
+
+// One 16-byte chunk of src (total words) at word g into dst: cp.async,
+// or word by word at the end of src.
+__device__ inline void copy_chunk(float* dst, const float* src, long long g,
+                                  long long total) {
+    if (g + 4 <= total) {
+        cp_async16(dst, src + g);
+    } else {
+        for (int e = 0; g + e < total; ++e) dst[e] = src[g + e];
+    }
+}
+
+// The rows of vertices v0 .. v0+nv of every lane into `rows` (lane l's are
+// the words [s, s + 3 nv) of v, as the 16-byte chunks that cover them: word
+// s lands at rows[l][s & 3]) and, for KR > 0, the plan's cols and vals of
+// those vertices after them.  Warp w copies the rows of lanes w, w + 32,
+// ... (a block has 32 x lanes threads, so a warp per lane).
+template <int KR>
+__device__ inline void stage_tile(float* rows, int rf, int pf, const float* v,
+                                  const int* cols, const float* vals, int B,
+                                  int V, int K, int b0, int nl, int v0,
+                                  int nv, int lanes) {
+    const long long total = (long long)B * V * 3;
+    for (int l = threadIdx.x / 32; l < nl; l += blockDim.x / 32) {
+        const long long s = ((long long)(b0 + l) * V + v0) * 3;
+        const long long c0 = s >> 2;
+        const int chunks = (int)(((s + 3 * nv + 3) >> 2) - c0);
+        for (int c = threadIdx.x % 32; c < chunks; c += 32)
+            copy_chunk(rows + l * rf + 4 * c, v, (c0 + c) * 4, total);
+    }
+    if constexpr (KR > 0) {
+        float* plan = rows + lanes * rf;
+        const long long s = (long long)v0 * K, total_k = (long long)V * K;
+        const int chunks = (int)(((s + nv * K + 3) >> 2) - (s >> 2));
+        for (int i = threadIdx.x; i < 2 * chunks; i += blockDim.x) {
+            const int half = i >= chunks, c = i - half * chunks;
+            copy_chunk(plan + half * pf + 4 * c,
+                       half ? vals : reinterpret_cast<const float*>(cols),
+                       ((s >> 2) + c) * 4, total_k);
+        }
+    }
+}
+
+// Whole chunks inside each lane's span as float4; the partial ends (shared
+// with the neighbouring tile or lane) word by word.  A warp per lane.
+__device__ inline void store_tile(const float* rows, int rf, float* out,
+                                  int b0, int nl, int V, int v0, int nv) {
+    for (int l = threadIdx.x / 32; l < nl; l += blockDim.x / 32) {
+        const long long s = ((long long)(b0 + l) * V + v0) * 3;
+        const long long e = s + 3 * nv;
+        const long long c0 = s >> 2;
+        const int chunks = (int)(((e + 3) >> 2) - c0);
+        for (int c = threadIdx.x % 32; c < chunks; c += 32) {
+            const long long g = (c0 + c) * 4;
+            const float* src = rows + l * rf + 4 * c;
+            if (g >= s && g + 4 <= e) {
+                *reinterpret_cast<float4*>(out + g) =
+                    *reinterpret_cast<const float4*>(src);
+            } else {
+                for (int q = 0; q < 4; ++q)
+                    if (g + q >= s && g + q < e) out[g + q] = src[q];
+            }
+        }
+    }
+}
+
+// KR > 0: the plan staged with the rows, each row in registers (K <= KR);
+// KR == 0: read from device memory in the loop.  A block of 32 x lanes
+// threads covers the vertices [blockIdx.x * chunk, + chunk) of `lanes`
+// lanes, `tile` vertices at a time, through a ring of STAGES buffers: the
+// rows and plan of the next STAGES - 1 tiles load while one is summed and
+// stored.
 template <int KR, bool STAGE_A>
 __global__ void lbs_kernel(const int* __restrict__ cols,
                            const float* __restrict__ vals,
                            const float* __restrict__ A,
                            const float* __restrict__ v,
                            float* __restrict__ out,
-                           int B, int V, int J, int K, int lanes) {
+                           int B, int V, int J, int K, int tile, int chunk,
+                           int lanes) {
     extern __shared__ __align__(16) float smem[];
-    const int tile = blockDim.x;
     const int t = threadIdx.x;
-    const int v0 = blockIdx.x * tile;
-    const int nv = min(tile, V - v0);
+    const int vbeg = blockIdx.x * chunk;
+    const int vend = min(V, vbeg + chunk);
     const int b0 = blockIdx.y * lanes;
     const int nl = min(lanes, B - b0);
-    float* as = smem;                                   // [lanes][J][12]
-    float* rows = smem + (STAGE_A ? lanes * J * 12 : 0);  // [lanes][row_floats]
+    const int as_stride = a_stride(J);
+    float* as = smem;                                   // [lanes][a_stride]
     const int rf = row_floats(tile);
-    const long long total = (long long)B * V * 3;
+    const int pf = plan_floats(tile, KR);
+    const int buf_floats = lanes * rf + 2 * pf;    // rows [lanes][rf], plan
+    float* bufs = smem + (STAGE_A ? lanes * as_stride : 0);  // STAGES of them
 
     if constexpr (STAGE_A) {
-        for (int i = t; i < nl * J * 3; i += tile) {
+        for (int i = t; i < nl * J * 3; i += blockDim.x) {
             const int lj = i / 3;                       // l * J + j
             const int q = i - 3 * lj;
-            cp_async16(as + lj * 12 + 4 * q,
+            const int l = lj / J;
+            cp_async16(as + l * as_stride + (lj - l * J) * 12 + 4 * q,
                        A + ((long long)b0 * J + lj) * 16 + 4 * q);
         }
     }
-    // Lane l's rows v0 .. v0+nv are the floats [s, s + 3 nv); chunk c0 + c
-    // lands at rows[l][4 c], so the span starts at offset s & 3.
-    for (int l = 0; l < nl; ++l) {
-        const long long s = ((long long)(b0 + l) * V + v0) * 3;
-        const long long c0 = s >> 2;
-        const int chunks = (int)(((s + 3 * nv + 3) >> 2) - c0);
-        float* row = rows + l * rf;
-        for (int c = t; c < chunks; c += tile) {
-            const long long g = (c0 + c) * 4;
-            if (g + 4 <= total) {
-                cp_async16(row + 4 * c, v + g);
-            } else {
-                for (int e = 0; g + e < total; ++e) row[4 * c + e] = v[g + e];
-            }
-        }
+    // One commit group per tile, empty past the chunk's end, so that tile
+    // i's group is complete when at most STAGES - 2 later ones are not.
+    for (int k = 0; k < STAGES - 1; ++k) {
+        const int vk = vbeg + k * tile;
+        if (vk < vend)
+            stage_tile<KR>(bufs + k * buf_floats, rf, pf, v, cols, vals, B, V,
+                           K, b0, nl, vk, min(tile, vend - vk), lanes);
+        cp_async_commit();
     }
-    cp_async_wait_all();
-    __syncthreads();
 
-    if (t < nv) {
-        const int* pc = cols + (long long)(v0 + t) * K;
-        const float* pw = vals + (long long)(v0 + t) * K;
-        int cj[KR > 0 ? KR : 1];
-        float cw[KR > 0 ? KR : 1];
-#pragma unroll
-        for (int k = 0; k < KR; ++k) {
-            cj[k] = k < K ? pc[k] : 0;
-            cw[k] = k < K ? pw[k] : 0.0f;
-        }
-        for (int l = 0; l < nl; ++l) {
-            float T[12];
-#pragma unroll
-            for (int k = 0; k < 12; ++k) T[k] = 0.0f;
-            auto add = [&](int j, float w) {
-                float4 a0, a1, a2;
-                if constexpr (STAGE_A) {
-                    const float4* a =
-                        reinterpret_cast<const float4*>(as + (l * J + j) * 12);
-                    a0 = a[0]; a1 = a[1]; a2 = a[2];
-                } else {
-                    const float4* a = reinterpret_cast<const float4*>(
-                        A + ((long long)(b0 + l) * J + j) * 16);
-                    a0 = __ldg(a); a1 = __ldg(a + 1); a2 = __ldg(a + 2);
-                }
-                T[0] = fmaf(w, a0.x, T[0]);
-                T[1] = fmaf(w, a0.y, T[1]);
-                T[2] = fmaf(w, a0.z, T[2]);
-                T[3] = fmaf(w, a0.w, T[3]);
-                T[4] = fmaf(w, a1.x, T[4]);
-                T[5] = fmaf(w, a1.y, T[5]);
-                T[6] = fmaf(w, a1.z, T[6]);
-                T[7] = fmaf(w, a1.w, T[7]);
-                T[8] = fmaf(w, a2.x, T[8]);
-                T[9] = fmaf(w, a2.y, T[9]);
-                T[10] = fmaf(w, a2.z, T[10]);
-                T[11] = fmaf(w, a2.w, T[11]);
-            };
-            if constexpr (KR > 0) {
-#pragma unroll
-                for (int k = 0; k < KR; ++k)
-                    if (k < K) add(cj[k], cw[k]);
-            } else {
-                for (int k = 0; k < K; ++k) add(pc[k], pw[k]);
-            }
+    const int l = t % lanes;
+    const float* al = as + l * as_stride;
+    const float* ag = A + (long long)(b0 + l) * J * 16;
+    for (int v0 = vbeg, i = 0; v0 < vend; v0 += tile, ++i) {
+        const int nv = min(tile, vend - v0);
+        float* cur = bufs + (i % STAGES) * buf_floats;
+        cp_async_wait<STAGES - 2>();
+        __syncthreads();        // tile i landed; tile i - 1 is stored
+        const int vn = v0 + (STAGES - 1) * tile;
+        if (vn < vend)
+            stage_tile<KR>(bufs + ((i + STAGES - 1) % STAGES) * buf_floats, rf,
+                           pf, v, cols, vals, B, V, K, b0, nl, vn,
+                           min(tile, vend - vn), lanes);
+        cp_async_commit();
+
+        if (l < nl) {
             const long long s = ((long long)(b0 + l) * V + v0) * 3;
-            float* p = rows + l * rf + (int)(s & 3) + 3 * t;
-            const float x = p[0], y = p[1], z = p[2];
-            p[0] = T[0] * x + T[1] * y + T[2] * z + T[3];
-            p[1] = T[4] * x + T[5] * y + T[6] * z + T[7];
-            p[2] = T[8] * x + T[9] * y + T[10] * z + T[11];
-        }
-    }
-    __syncthreads();
-
-    // Whole chunks inside the span as float4; the partial ends (shared with
-    // the neighbouring tile or lane) float by float.
-    for (int l = 0; l < nl; ++l) {
-        const long long s = ((long long)(b0 + l) * V + v0) * 3;
-        const long long e = s + 3 * nv;
-        const long long c0 = s >> 2;
-        const int chunks = (int)(((e + 3) >> 2) - c0);
-        const float* row = rows + l * rf;
-        for (int c = t; c < chunks; c += tile) {
-            const long long g = (c0 + c) * 4;
-            if (g >= s && g + 4 <= e) {
-                *reinterpret_cast<float4*>(out + g) =
-                    *reinterpret_cast<const float4*>(row + 4 * c);
-            } else {
-                for (int q = 0; q < 4; ++q)
-                    if (g + q >= s && g + q < e) out[g + q] = row[4 * c + q];
+            float* row = cur + l * rf + (int)(s & 3);
+            const int* plan_c = cols + (long long)v0 * K;
+            const float* plan_w = vals + (long long)v0 * K;
+            if constexpr (KR > 0) {
+                plan_w = cur + lanes * rf + (int)(((long long)v0 * K) & 3);
+                plan_c = reinterpret_cast<const int*>(plan_w);
+                plan_w += pf;
+            }
+            for (int vi = t / lanes; vi < nv; vi += 32) {
+                const int* pc = plan_c + vi * K;
+                const float* pw = plan_w + vi * K;
+                float T[12];
+#pragma unroll
+                for (int k = 0; k < 12; ++k) T[k] = 0.0f;
+                auto add = [&](int j, float w) {
+                    float4 a0, a1, a2;
+                    if constexpr (STAGE_A) {
+                        const float4* a =
+                            reinterpret_cast<const float4*>(al + j * 12);
+                        a0 = a[0]; a1 = a[1]; a2 = a[2];
+                    } else {
+                        const float4* a =
+                            reinterpret_cast<const float4*>(ag + j * 16);
+                        a0 = __ldg(a); a1 = __ldg(a + 1); a2 = __ldg(a + 2);
+                    }
+                    T[0] = fmaf(w, a0.x, T[0]);
+                    T[1] = fmaf(w, a0.y, T[1]);
+                    T[2] = fmaf(w, a0.z, T[2]);
+                    T[3] = fmaf(w, a0.w, T[3]);
+                    T[4] = fmaf(w, a1.x, T[4]);
+                    T[5] = fmaf(w, a1.y, T[5]);
+                    T[6] = fmaf(w, a1.z, T[6]);
+                    T[7] = fmaf(w, a1.w, T[7]);
+                    T[8] = fmaf(w, a2.x, T[8]);
+                    T[9] = fmaf(w, a2.y, T[9]);
+                    T[10] = fmaf(w, a2.z, T[10]);
+                    T[11] = fmaf(w, a2.w, T[11]);
+                };
+                if constexpr (KR > 0) {
+                    int cj[KR];
+                    float cw[KR];
+                    if (K == KR) {      // rows 16-byte aligned: vectors
+#pragma unroll
+                        for (int k = 0; k < KR; k += 4) {
+                            const int4 c4 =
+                                *reinterpret_cast<const int4*>(pc + k);
+                            const float4 w4 =
+                                *reinterpret_cast<const float4*>(pw + k);
+                            cj[k] = c4.x; cj[k + 1] = c4.y;
+                            cj[k + 2] = c4.z; cj[k + 3] = c4.w;
+                            cw[k] = w4.x; cw[k + 1] = w4.y;
+                            cw[k + 2] = w4.z; cw[k + 3] = w4.w;
+                        }
+                    } else {
+#pragma unroll
+                        for (int k = 0; k < KR; ++k) {
+                            cj[k] = k < K ? pc[k] : 0;
+                            cw[k] = k < K ? pw[k] : 0.0f;
+                        }
+                    }
+#pragma unroll
+                    for (int k = 0; k < KR; ++k)
+                        if (k < K) add(cj[k], cw[k]);
+                } else {
+                    for (int k = 0; k < K; ++k) add(pc[k], pw[k]);
+                }
+                float* p = row + 3 * vi;
+                const float x = p[0], y = p[1], z = p[2];
+                p[0] = T[0] * x + T[1] * y + T[2] * z + T[3];
+                p[1] = T[4] * x + T[5] * y + T[6] * z + T[7];
+                p[2] = T[8] * x + T[9] * y + T[10] * z + T[11];
             }
         }
+        __syncthreads();
+        store_tile(cur, rf, out, b0, nl, V, v0, nv);
     }
 }
 
-size_t shmem_bytes(int tile, int lanes, int J, bool stage) {
-    return sizeof(float) * ((size_t)(stage ? lanes * J * 12 : 0)
-                            + (size_t)lanes * row_floats(tile));
+size_t shmem_bytes(int tile, int lanes, int J, int KR, bool stage) {
+    return sizeof(float) * ((size_t)lanes * (stage ? a_stride(J) : 0)
+                            + STAGES * ((size_t)lanes * row_floats(tile)
+                                        + 2 * plan_floats(tile, KR)));
 }
+
+int plan_registers(int K) { return K <= 4 ? 4 : K <= 8 ? 8 : K <= 16 ? 16 : 0; }
 
 int device_attribute(cudaDeviceAttr attr) {
     int dev = 0, value = 0;
@@ -199,6 +320,8 @@ int device_attribute(cudaDeviceAttr attr) {
     return value;
 }
 
+// One wave: as many vertex chunks per lane group as the SMs hold blocks
+// of this size, at most one per tile.
 template <int KR, bool STAGE_A>
 int launch(const int* cols, const float* vals, const float* A, const float* v,
            float* out, int B, int V, int J, int K, int tile, int lanes,
@@ -209,9 +332,20 @@ int launch(const int* cols, const float* vals, const float* A, const float* v,
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
         if (err != cudaSuccess) return (int)err;
     }
-    const dim3 grid((V + tile - 1) / tile, (B + lanes - 1) / lanes);
-    kernel<<<grid, tile, shmem, stream>>>(cols, vals, A, v, out, B, V, J, K,
-                                          lanes);
+    int per_sm = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, 32 * lanes, shmem);
+    if (err != cudaSuccess) return (int)err;
+    const int groups = (B + lanes - 1) / lanes;
+    const long long resident =
+        (long long)per_sm * device_attribute(cudaDevAttrMultiProcessorCount);
+    const int tiles = (V + tile - 1) / tile;
+    const int chunks = (int)std::max(1LL, std::min<long long>(
+        tiles, resident / groups));
+    const int chunk = (V + chunks - 1) / chunks;
+    const dim3 grid((V + chunk - 1) / chunk, groups);
+    kernel<<<grid, 32 * lanes, shmem, stream>>>(cols, vals, A, v, out, B, V,
+                                                J, K, tile, chunk, lanes);
     return (int)cudaGetLastError();
 }
 
@@ -221,21 +355,25 @@ int dispatch(const int* cols, const float* vals, const float* A, const float* v,
              size_t shmem, cudaStream_t stream) {
 #define LBS_LAUNCH(KR) launch<KR, STAGE_A>(cols, vals, A, v, out, B, V, J, K, \
                                            tile, lanes, shmem, stream)
-    if (K <= 4) return LBS_LAUNCH(4);
-    if (K <= 8) return LBS_LAUNCH(8);
-    if (K <= 16) return LBS_LAUNCH(16);
-    return LBS_LAUNCH(0);
+    switch (plan_registers(K)) {
+        case 4: return LBS_LAUNCH(4);
+        case 8: return LBS_LAUNCH(8);
+        case 16: return LBS_LAUNCH(16);
+        default: return LBS_LAUNCH(0);
+    }
 #undef LBS_LAUNCH
 }
 
 }  // namespace
 
-// The widest J the kernel takes: one lane of the smallest tile, A staged.
+// The widest J the kernel takes whatever K: one lane, two buffers of the
+// smallest tile with the widest staged plan, A staged.
 extern "C" int lbs_max_joints() {
     const long long room =
         (long long)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin)
-        - (long long)sizeof(float) * row_floats(MIN_TILE);
-    return (int)(room / (12 * sizeof(float)));
+            / (long long)sizeof(float)
+        - STAGES * (row_floats(MIN_TILE) + 2 * plan_floats(MIN_TILE, 16));
+    return (int)((room - 4) / 12);
 }
 
 // cols [V, K] int32, vals [V, K], A [B, J, 16], v [B, V, 3], out [B, V, 3];
@@ -249,6 +387,7 @@ extern "C" int lbs_forward(const int* cols, const float* vals, const float* A,
     if (B <= 0 || V <= 0) return 0;
     if (J <= 0 || K <= 0 || K > J) return (int)cudaErrorInvalidValue;
     const bool stage = a_path != 1;
+    const int KR = plan_registers(K);
     int tile = MAX_TILE;
     while (tile > MIN_TILE && tile * 32 > V) tile /= 2;
     const int tiles = (V + tile - 1) / tile;
@@ -259,13 +398,13 @@ extern "C" int lbs_forward(const int* cols, const float* vals, const float* A,
         lanes /= 2;
     const size_t room =
         (size_t)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin);
-    while (shmem_bytes(tile, lanes, J, stage) > room) {
+    while (shmem_bytes(tile, lanes, J, KR, stage) > room) {
         if (lanes > 1) lanes /= 2;
         else if (tile > MIN_TILE) tile /= 2;
         else return (int)cudaErrorInvalidValue;
     }
     if ((B + lanes - 1) / lanes > MAX_GRID_Y) return (int)cudaErrorInvalidValue;
-    const size_t shmem = shmem_bytes(tile, lanes, J, stage);
+    const size_t shmem = shmem_bytes(tile, lanes, J, KR, stage);
     const cudaStream_t st = (cudaStream_t)stream;
     return stage ? dispatch<true>(cols, vals, A, v, out, B, V, J, K, tile,
                                   lanes, shmem, st)

@@ -161,9 +161,9 @@ def _kernel_forward(plan, A, v_posed, a_path=A_AUTO):
                          f"shared memory), got {J}")
     if B * V * 3 >= 2 ** 31 or B * J * 16 >= 2 ** 31:
         raise ValueError("lbs kernel indexes below 2^31 elements")
-    if A.data_ptr() % 16 or v_posed.data_ptr() % 16:
-        raise ValueError("lbs kernel reads A and v_posed as 16-byte vectors: "
-                         "they must start 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (A, v_posed, plan.cols, plan.vals)):
+        raise ValueError("lbs kernel copies A, v_posed and the plan in 16-byte "
+                         "words: they must start 16-byte aligned")
     out = torch.empty_like(v_posed)
     with torch.cuda.device(v_posed.device):
         stream = torch.cuda.current_stream(v_posed.device).cuda_stream

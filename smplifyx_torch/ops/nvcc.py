@@ -38,10 +38,12 @@ def _nvcc() -> str:
     return str(path) if path.exists() else "nvcc"
 
 
-def build_command(name: str, out: Path | None = None) -> list:
-    """The nvcc command that builds one kernel library."""
+def build_command(name: str, out: Path | None = None,
+                  src: Path | None = None) -> list:
+    """The nvcc command that builds one kernel library (from `src` in place
+    of the kernel's source, where given)."""
     return [_nvcc(), *NVCC_FLAGS, "-o", str(out or library(name)),
-            str(source(name))]
+            str(src or source(name))]
 
 
 def _stale(name: str) -> bool:

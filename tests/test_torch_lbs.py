@@ -118,7 +118,7 @@ class TestColumnPlan:
     @pytest.mark.parametrize("kind,K", [("synthetic", 4), ("smooth", 4),
                                         ("dense", 55)])
     def test_plan_densifies_back_in_ascending_columns(self, kind, K):
-        W = torch.as_tensor(plan_weights(kind))
+        W = torch.tensor(plan_weights(kind))
         before = tlbs.lbs_plan.builds
         plan = tlbs.lbs_plan(W)
         assert tlbs.lbs_plan.builds == before + 1
