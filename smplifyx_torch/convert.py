@@ -32,18 +32,14 @@ def _tensor(a, dev):
     return torch.as_tensor(a.astype(np.float32), device=dev)
 
 
-def _build(cls, fields: dict, device, **derived):
-    """cls from `fields`, with the fields in `derived` computed from the
-    others: name -> function of the converted fields."""
+def _build(cls, fields: dict, device):
     dev = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(cls):
-        if f.name in derived:
-            continue
         v = fields[f.name]
         kw[f.name] = (_tensor(v, dev) if isinstance(v, (np.ndarray, np.generic))
                       else v)
-    return cls(**kw, **{name: fn(kw) for name, fn in derived.items()})
+    return cls(**kw)
 
 
 def smplx_model(fields: dict, device="cuda") -> SMPLXModel:
@@ -53,8 +49,8 @@ def smplx_model(fields: dict, device="cuda") -> SMPLXModel:
 
 def joints_model(fields: dict, device="cuda") -> JointsModel:
     """JointsModel with the column plan of its subset's skinning weights."""
-    return _build(JointsModel, fields, device,
-                  lbs_plan=lambda kw: lbs_plan(kw["sub_lbs"]))
+    jm = _build(JointsModel, {**fields, "lbs_plan": None}, device)
+    return dataclasses.replace(jm, lbs_plan=lbs_plan(jm.sub_lbs))
 
 
 def gmm_prior(fields: dict, device="cuda") -> GMMPrior:

@@ -36,8 +36,8 @@
 //     K <= 16 (as int4/float4 when K is 4, 8 or 16), and the quarter-warp's
 //     threads read the same pairs, which shared memory broadcasts;
 //   * the 12 used floats of each (lane, joint) of A are staged in shared
-//     memory with 16-byte cp.async copies (or read through the read-only
-//     path: a_path, timed against each other by chip_smoke.py);
+//     memory with 16-byte cp.async copies (faster at every main-path shape
+//     than reading them through the read-only path);
 //   * v_posed and out are [B, V, 3]: each lane's rows of the tile are one
 //     contiguous span, copied into shared memory as the 16-byte chunks that
 //     cover it and written back the same way (whole chunks as float4, the
@@ -113,8 +113,8 @@ __device__ inline void copy_chunk(float* dst, const float* src, long long g,
 // The rows of vertices v0 .. v0+nv of every lane into `rows` (lane l's are
 // the words [s, s + 3 nv) of v, as the 16-byte chunks that cover them: word
 // s lands at rows[l][s & 3]) and, for KR > 0, the plan's cols and vals of
-// those vertices after them.  Warp w copies the rows of lanes w, w + 32,
-// ... (a block has 32 x lanes threads, so a warp per lane).
+// those vertices after them.  A block has 32 x lanes threads: warp l
+// copies lane l's rows.
 template <int KR>
 __device__ inline void stage_tile(float* rows, int rf, int pf, const float* v,
                                   const int* cols, const float* vals, int B,
@@ -170,7 +170,7 @@ __device__ inline void store_tile(const float* rows, int rf, float* out,
 // lanes, `tile` vertices at a time, through a ring of STAGES buffers: the
 // rows and plan of the next STAGES - 1 tiles load while one is summed and
 // stored.
-template <int KR, bool STAGE_A>
+template <int KR>
 __global__ void lbs_kernel(const int* __restrict__ cols,
                            const float* __restrict__ vals,
                            const float* __restrict__ A,
@@ -189,16 +189,14 @@ __global__ void lbs_kernel(const int* __restrict__ cols,
     const int rf = row_floats(tile);
     const int pf = plan_floats(tile, KR);
     const int buf_floats = lanes * rf + 2 * pf;    // rows [lanes][rf], plan
-    float* bufs = smem + (STAGE_A ? lanes * as_stride : 0);  // STAGES of them
+    float* bufs = smem + lanes * as_stride;        // STAGES of them
 
-    if constexpr (STAGE_A) {
-        for (int i = t; i < nl * J * 3; i += blockDim.x) {
-            const int lj = i / 3;                       // l * J + j
-            const int q = i - 3 * lj;
-            const int l = lj / J;
-            cp_async16(as + l * as_stride + (lj - l * J) * 12 + 4 * q,
-                       A + ((long long)b0 * J + lj) * 16 + 4 * q);
-        }
+    for (int i = t; i < nl * J * 3; i += blockDim.x) {
+        const int lj = i / 3;                           // l * J + j
+        const int q = i - 3 * lj;
+        const int l = lj / J;
+        cp_async16(as + l * as_stride + (lj - l * J) * 12 + 4 * q,
+                   A + ((long long)b0 * J + lj) * 16 + 4 * q);
     }
     // One commit group per tile, empty past the chunk's end, so that tile
     // i's group is complete when at most STAGES - 2 later ones are not.
@@ -212,7 +210,6 @@ __global__ void lbs_kernel(const int* __restrict__ cols,
 
     const int l = t % lanes;
     const float* al = as + l * as_stride;
-    const float* ag = A + (long long)(b0 + l) * J * 16;
     for (int v0 = vbeg, i = 0; v0 < vend; v0 += tile, ++i) {
         const int nv = min(tile, vend - v0);
         float* cur = bufs + (i % STAGES) * buf_floats;
@@ -242,16 +239,9 @@ __global__ void lbs_kernel(const int* __restrict__ cols,
 #pragma unroll
                 for (int k = 0; k < 12; ++k) T[k] = 0.0f;
                 auto add = [&](int j, float w) {
-                    float4 a0, a1, a2;
-                    if constexpr (STAGE_A) {
-                        const float4* a =
-                            reinterpret_cast<const float4*>(al + j * 12);
-                        a0 = a[0]; a1 = a[1]; a2 = a[2];
-                    } else {
-                        const float4* a =
-                            reinterpret_cast<const float4*>(ag + j * 16);
-                        a0 = __ldg(a); a1 = __ldg(a + 1); a2 = __ldg(a + 2);
-                    }
+                    const float4* a =
+                        reinterpret_cast<const float4*>(al + j * 12);
+                    const float4 a0 = a[0], a1 = a[1], a2 = a[2];
                     T[0] = fmaf(w, a0.x, T[0]);
                     T[1] = fmaf(w, a0.y, T[1]);
                     T[2] = fmaf(w, a0.z, T[2]);
@@ -305,8 +295,8 @@ __global__ void lbs_kernel(const int* __restrict__ cols,
     }
 }
 
-size_t shmem_bytes(int tile, int lanes, int J, int KR, bool stage) {
-    return sizeof(float) * ((size_t)lanes * (stage ? a_stride(J) : 0)
+size_t shmem_bytes(int tile, int lanes, int J, int KR) {
+    return sizeof(float) * ((size_t)lanes * a_stride(J)
                             + STAGES * ((size_t)lanes * row_floats(tile)
                                         + 2 * plan_floats(tile, KR)));
 }
@@ -322,11 +312,11 @@ int device_attribute(cudaDeviceAttr attr) {
 
 // One wave: as many vertex chunks per lane group as the SMs hold blocks
 // of this size, at most one per tile.
-template <int KR, bool STAGE_A>
+template <int KR>
 int launch(const int* cols, const float* vals, const float* A, const float* v,
            float* out, int B, int V, int J, int K, int tile, int lanes,
            size_t shmem, cudaStream_t stream) {
-    auto kernel = lbs_kernel<KR, STAGE_A>;
+    auto kernel = lbs_kernel<KR>;
     if (shmem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
@@ -349,20 +339,6 @@ int launch(const int* cols, const float* vals, const float* A, const float* v,
     return (int)cudaGetLastError();
 }
 
-template <bool STAGE_A>
-int dispatch(const int* cols, const float* vals, const float* A, const float* v,
-             float* out, int B, int V, int J, int K, int tile, int lanes,
-             size_t shmem, cudaStream_t stream) {
-#define LBS_LAUNCH(KR) launch<KR, STAGE_A>(cols, vals, A, v, out, B, V, J, K, \
-                                           tile, lanes, shmem, stream)
-    switch (plan_registers(K)) {
-        case 4: return LBS_LAUNCH(4);
-        case 8: return LBS_LAUNCH(8);
-        case 16: return LBS_LAUNCH(16);
-        default: return LBS_LAUNCH(0);
-    }
-#undef LBS_LAUNCH
-}
 
 }  // namespace
 
@@ -377,17 +353,15 @@ extern "C" int lbs_max_joints() {
 }
 
 // cols [V, K] int32, vals [V, K], A [B, J, 16], v [B, V, 3], out [B, V, 3];
-// f32, contiguous, A and v 16-byte aligned, on the current device.
-// a_path: 0 stages A in shared memory, 1 reads it through the read-only
-// path, -1 lets the launcher choose.  Launches on `stream` and returns the
-// launch's cudaError_t (0 on success); the caller raises on anything else.
+// f32, contiguous, all 16-byte aligned, on the current device.
+// Launches on `stream` and returns the launch's cudaError_t (0 on
+// success); the caller raises on anything else.
 extern "C" int lbs_forward(const int* cols, const float* vals, const float* A,
                            const float* v, float* out, int B, int V, int J,
-                           int K, int a_path, void* stream) {
+                           int K, void* stream) {
     if (B <= 0 || V <= 0) return 0;
     if (J <= 0 || K <= 0 || K > J) return (int)cudaErrorInvalidValue;
-    const bool stage = a_path != 1;
-    const int KR = plan_registers(K);
+    const int kr = plan_registers(K);
     int tile = MAX_TILE;
     while (tile > MIN_TILE && tile * 32 > V) tile /= 2;
     const int tiles = (V + tile - 1) / tile;
@@ -398,16 +372,20 @@ extern "C" int lbs_forward(const int* cols, const float* vals, const float* A,
         lanes /= 2;
     const size_t room =
         (size_t)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin);
-    while (shmem_bytes(tile, lanes, J, KR, stage) > room) {
+    while (shmem_bytes(tile, lanes, J, kr) > room) {
         if (lanes > 1) lanes /= 2;
         else if (tile > MIN_TILE) tile /= 2;
         else return (int)cudaErrorInvalidValue;
     }
     if ((B + lanes - 1) / lanes > MAX_GRID_Y) return (int)cudaErrorInvalidValue;
-    const size_t shmem = shmem_bytes(tile, lanes, J, KR, stage);
-    const cudaStream_t st = (cudaStream_t)stream;
-    return stage ? dispatch<true>(cols, vals, A, v, out, B, V, J, K, tile,
-                                  lanes, shmem, st)
-                 : dispatch<false>(cols, vals, A, v, out, B, V, J, K, tile,
-                                   lanes, shmem, st);
+    const size_t shmem = shmem_bytes(tile, lanes, J, kr);
+#define LBS_LAUNCH(KR) launch<KR>(cols, vals, A, v, out, B, V, J, K, tile, \
+                                  lanes, shmem, (cudaStream_t)stream)
+    switch (kr) {
+        case 4: return LBS_LAUNCH(4);
+        case 8: return LBS_LAUNCH(8);
+        case 16: return LBS_LAUNCH(16);
+        default: return LBS_LAUNCH(0);
+    }
+#undef LBS_LAUNCH
 }

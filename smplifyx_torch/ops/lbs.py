@@ -40,14 +40,10 @@ import torch
 from smplifyx_torch.ops import nvcc
 from smplifyx_torch.utils.tensors import TensorFields
 
-# How the kernel reads A (csrc/lbs.cu): staged in shared memory, through
-# the read-only path, or the launcher's choice for the shape.
-A_AUTO, A_SHARED, A_READ_ONLY = -1, 0, 1
-
 
 def _load():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return nvcc.load("lbs", {"lbs_forward": [p] * 5 + [i] * 5 + [p],
+    return nvcc.load("lbs", {"lbs_forward": [p] * 5 + [i] * 4 + [p],
                              "lbs_max_joints": []})
 
 
@@ -116,7 +112,9 @@ def lbs_vjp(weights, A, v_posed, g, need_dA=True, need_dv=True):
 
 
 def _check(weights, A, v_posed, plan):
-    tensors = [weights, A, v_posed] + ([plan.cols, plan.vals] if plan else [])
+    tensors = [weights, A, v_posed]
+    if plan is not None:
+        tensors += [plan.cols, plan.vals]
     if len({t.device for t in tensors}) != 1:
         raise ValueError(
             f"lbs_apply: tensors on {[str(t.device) for t in tensors]}; "
@@ -151,7 +149,7 @@ def _check(weights, A, v_posed, plan):
             raise ValueError("lbs_apply: the plan must be contiguous")
 
 
-def _kernel_forward(plan, A, v_posed, a_path=A_AUTO):
+def _kernel_forward(plan, A, v_posed):
     """Launch K1 on the current stream (CUDA tensors only)."""
     B, J = A.shape[:2]
     V, K = plan.cols.shape
@@ -169,7 +167,7 @@ def _kernel_forward(plan, A, v_posed, a_path=A_AUTO):
         stream = torch.cuda.current_stream(v_posed.device).cuda_stream
         err = lib.lbs_forward(
             plan.cols.data_ptr(), plan.vals.data_ptr(), A.data_ptr(),
-            v_posed.data_ptr(), out.data_ptr(), B, V, J, K, a_path, stream,
+            v_posed.data_ptr(), out.data_ptr(), B, V, J, K, stream,
         )
     if err != 0:
         raise RuntimeError(f"lbs kernel launch failed: cudaError_t {err}")

@@ -51,7 +51,7 @@ __global__ void copy4(const float4* __restrict__ v, float4* __restrict__ out,
 // multiple of 4).
 extern "C" int lbs_forward(const int*, const float*, const float*,
                            const float* v, float* out, int B, int V, int,
-                           int, int, void* stream) {
+                           int, void* stream) {
     int dev = 0, sms = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -83,7 +83,7 @@ def build(out: Path) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {name}:\n{log}")
         fn = ctypes.CDLL(str(out / f"lib{name}.so")).lbs_forward
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         libs[name] = fn
@@ -127,10 +127,10 @@ def main(argv=None) -> int:
         v = torch.randn(B, V, 3, device="cuda", generator=gen)
         out = torch.empty_like(v)
 
-        def launch(fn=None):
+        def launch(fn):
             err = fn(plan.cols.data_ptr(), plan.vals.data_ptr(), A.data_ptr(),
                      v.data_ptr(), out.data_ptr(), B, V, J,
-                     plan.cols.shape[1], lbs.A_AUTO, stream)
+                     plan.cols.shape[1], stream)
             if err:
                 raise RuntimeError(f"launch failed: cudaError_t {err}")
 
