@@ -899,8 +899,7 @@ def main() -> int:
     emit({"kernels": [
         kernel_entry("lbs", "smplifyx_torch/csrc/lbs.cu",
                      "smplifyx_tpu/ops/lbs_pallas.py:65", launches["lbs"],
-                     lbs_rows, ("B", "V", "J", "K"),
-                     dense_bound_ms=lbs_rows[0]["dense_bound_ms"]),
+                     lbs_rows, ("B", "V", "J", "K")),
         kernel_entry("gather", "smplifyx_torch/csrc/gather.cu",
                      "smplifyx_tpu/ops/gather_pallas.py:76", launches["gather"],
                      gathers, ("B", "N", "R", "C")),

@@ -49,8 +49,9 @@ def smplx_model(fields: dict, device="cuda") -> SMPLXModel:
 
 def joints_model(fields: dict, device="cuda") -> JointsModel:
     """JointsModel with the column plan of its subset's skinning weights."""
-    jm = _build(JointsModel, {**fields, "lbs_plan": None}, device)
-    return dataclasses.replace(jm, lbs_plan=lbs_plan(jm.sub_lbs))
+    dev = resolve_device(device)
+    plan = lbs_plan(_tensor(fields["sub_lbs"], dev))
+    return _build(JointsModel, {**fields, "lbs_plan": plan}, dev)
 
 
 def gmm_prior(fields: dict, device="cuda") -> GMMPrior:

@@ -31,10 +31,11 @@
 //     joints of 8 lanes.  A lane's slab of A has an odd number of 16-byte
 //     words, so those 8 float4 reads fall on 8 different bank groups: no
 //     bank conflict, whatever joints the vertex has;
-//   * the tile's span of the plan is staged with its rows; each thread
-//     reads its vertex's K (col, val) pairs once, into registers for
-//     K <= 16 (as int4/float4 when K is 4, 8 or 16), and the quarter-warp's
-//     threads read the same pairs, which shared memory broadcasts;
+//   * for K <= 4 the tile's span of the plan is staged with its rows; each
+//     thread reads its vertex's K (col, val) pairs once, into registers (as
+//     an int4 and a float4 when K is 4), and the quarter-warp's threads
+//     read the same pairs, which shared memory broadcasts.  A wider plan
+//     is read from device memory in the loop;
 //   * the 12 used floats of each (lane, joint) of A are staged in shared
 //     memory with 16-byte cp.async copies (faster at every main-path shape
 //     than reading them through the read-only path);
@@ -45,20 +46,31 @@
 //     splits a transaction.  The result goes back into the same slots.
 // The sum runs over the plan's row in order with fmaf, and the epilogue is
 // the dense kernel's expression (lbs_reference's, in f32): a skipped zero
-// weight would add fmaf(0, a, acc) == acc (A finite), so the output equals
-// a dense loop over all J columns bit for bit.  FP32 only: TF32 tensor
-// cores would break f32 parity with the reference.
+// weight would add fmaf(0, a, acc) == acc, so the output equals a dense
+// loop over all J columns bit for bit.  That holds for finite A only: an
+// Inf or NaN in A[b, j] at a joint j of weight zero makes the dense sum
+// NaN, and this one does not see it.  FP32 only: TF32 tensor cores would
+// break f32 parity with the reference.
 //
 // Shared memory is the only limit on J: lanes x (12 J + 4) floats of A
 // plus STAGES buffers of lanes x (3 x tile + 4) floats of rows and, for
-// K <= 16, 2 x (tile x 16 + 4) of plan must fit what a block may opt into
-// (227 KB on an H100: J <= 4,653 at one lane of 32 vertices, which
+// K <= 4, 2 x (tile x 4 + 4) of plan must fit what a block may opt into
+// (227 KB on an H100: J <= 4,781 at one lane of 32 vertices, which
 // lbs_max_joints reports).  The launcher halves lanes, then the tile,
-// until the block fits.
+// until the block fits.  It works out a shape's launch once per device
+// and keeps it: later calls of that shape only launch.
+//
+// Built with -DLBS_NO_SUM the kernel stages A, the plan and the rows and
+// stores the rows back unchanged: its memory path alone, which
+// smplifyx_torch/tools/lbs_limits.py times beside the kernel.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <map>
+#include <mutex>
+#include <utility>
+#include <vector>
 
 namespace {
 
@@ -164,7 +176,7 @@ __device__ inline void store_tile(const float* rows, int rf, float* out,
     }
 }
 
-// KR > 0: the plan staged with the rows, each row in registers (K <= KR);
+// KR == 4: the plan staged with the rows, each row in registers (K <= 4);
 // KR == 0: read from device memory in the loop.  A block of 32 x lanes
 // threads covers the vertices [blockIdx.x * chunk, + chunk) of `lanes`
 // lanes, `tile` vertices at a time, through a ring of STAGES buffers: the
@@ -222,6 +234,7 @@ __global__ void lbs_kernel(const int* __restrict__ cols,
                            min(tile, vend - vn), lanes);
         cp_async_commit();
 
+#ifndef LBS_NO_SUM
         if (l < nl) {
             const long long s = ((long long)(b0 + l) * V + v0) * 3;
             float* row = cur + l * rf + (int)(s & 3);
@@ -290,6 +303,7 @@ __global__ void lbs_kernel(const int* __restrict__ cols,
                 p[2] = T[8] * x + T[9] * y + T[10] * z + T[11];
             }
         }
+#endif
         __syncthreads();
         store_tile(cur, rf, out, b0, nl, V, v0, nv);
     }
@@ -301,54 +315,90 @@ size_t shmem_bytes(int tile, int lanes, int J, int KR) {
                                         + 2 * plan_floats(tile, KR)));
 }
 
-int plan_registers(int K) { return K <= 4 ? 4 : K <= 8 ? 8 : K <= 16 ? 16 : 0; }
-
-int device_attribute(cudaDeviceAttr attr) {
-    int dev = 0, value = 0;
-    cudaGetDevice(&dev);
+int device_attribute(cudaDeviceAttr attr, int dev) {
+    int value = 0;
     cudaDeviceGetAttribute(&value, attr, dev);
     return value;
 }
 
-// One wave: as many vertex chunks per lane group as the SMs hold blocks
-// of this size, at most one per tile.
+// The launch of one shape on one device.
+struct Config {
+    int dev, B, V, J, K;        // the shape
+    int kr, tile, lanes, chunk;
+    size_t shmem;
+    dim3 grid;
+};
+
+std::mutex config_mutex;
+std::vector<Config> configs;
+// The dynamic shared memory each (device, KR) kernel was opened to: it only
+// grows, so every kept launch stays valid.
+std::map<std::pair<int, int>, size_t> opened;
+
+// Open the kernel to `shmem` bytes on `dev` and count how many of its
+// blocks an SM holds.
 template <int KR>
-int launch(const int* cols, const float* vals, const float* A, const float* v,
-           float* out, int B, int V, int J, int K, int tile, int lanes,
-           size_t shmem, cudaStream_t stream) {
+cudaError_t resident_blocks(int dev, int lanes, size_t shmem, int* per_sm) {
     auto kernel = lbs_kernel<KR>;
-    if (shmem > 48 * 1024) {
+    size_t& bytes = opened[{dev, KR}];
+    if (shmem > 48 * 1024 && shmem > bytes) {
         const cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-        if (err != cudaSuccess) return (int)err;
+        if (err != cudaSuccess) return err;
+        bytes = shmem;
     }
-    int per_sm = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, 32 * lanes, shmem);
-    if (err != cudaSuccess) return (int)err;
-    const int groups = (B + lanes - 1) / lanes;
-    const long long resident =
-        (long long)per_sm * device_attribute(cudaDevAttrMultiProcessorCount);
-    const int tiles = (V + tile - 1) / tile;
-    const int chunks = (int)std::max(1LL, std::min<long long>(
-        tiles, resident / groups));
-    const int chunk = (V + chunks - 1) / chunks;
-    const dim3 grid((V + chunk - 1) / chunk, groups);
-    kernel<<<grid, 32 * lanes, shmem, stream>>>(cols, vals, A, v, out, B, V,
-                                                J, K, tile, chunk, lanes);
-    return (int)cudaGetLastError();
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                         32 * lanes, shmem);
 }
 
+// Tile and lanes so that one tile per block gives BLOCKS_PER_SM blocks per
+// SM where the shape allows and the block fits shared memory; then one
+// wave: as many vertex chunks per lane group as the SMs hold blocks of
+// this size, at most one per tile.
+cudaError_t make_config(int dev, int B, int V, int J, int K, Config* c) {
+    const int sms = device_attribute(cudaDevAttrMultiProcessorCount, dev);
+    const size_t room = (size_t)device_attribute(
+        cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    const int kr = K <= 4 ? 4 : 0;
+    int tile = MAX_TILE;
+    while (tile > MIN_TILE && tile * 32 > V) tile /= 2;
+    const int tiles = (V + tile - 1) / tile;
+    int lanes = MAX_LANES;
+    while (lanes > 1
+           && (long long)tiles * ((B + lanes - 1) / lanes) < BLOCKS_PER_SM * sms)
+        lanes /= 2;
+    while (shmem_bytes(tile, lanes, J, kr) > room) {
+        if (lanes > 1) lanes /= 2;
+        else if (tile > MIN_TILE) tile /= 2;
+        else return cudaErrorInvalidValue;
+    }
+    const int groups = (B + lanes - 1) / lanes;
+    if (groups > MAX_GRID_Y) return cudaErrorInvalidValue;
+    const size_t shmem = shmem_bytes(tile, lanes, J, kr);
+    int per_sm = 0;
+    const cudaError_t err =
+        kr == 4 ? resident_blocks<4>(dev, lanes, shmem, &per_sm)
+                : resident_blocks<0>(dev, lanes, shmem, &per_sm);
+    if (err != cudaSuccess) return err;
+    const int chunks = (int)std::max(1LL, std::min<long long>(
+        tiles, (long long)per_sm * sms / groups));
+    const int chunk = (V + chunks - 1) / chunks;
+    *c = Config{dev, B, V, J, K, kr, tile, lanes, chunk, shmem,
+                dim3((V + chunk - 1) / chunk, groups)};
+    return cudaSuccess;
+}
 
 }  // namespace
 
 // The widest J the kernel takes whatever K: one lane, two buffers of the
 // smallest tile with the widest staged plan, A staged.
 extern "C" int lbs_max_joints() {
+    int dev = 0;
+    cudaGetDevice(&dev);
     const long long room =
-        (long long)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin)
-            / (long long)sizeof(float)
-        - STAGES * (row_floats(MIN_TILE) + 2 * plan_floats(MIN_TILE, 16));
+        (long long)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                    dev) / (long long)sizeof(float)
+        - STAGES * (row_floats(MIN_TILE) + 2 * plan_floats(MIN_TILE, 4));
     return (int)((room - 4) / 12);
 }
 
@@ -361,31 +411,31 @@ extern "C" int lbs_forward(const int* cols, const float* vals, const float* A,
                            int K, void* stream) {
     if (B <= 0 || V <= 0) return 0;
     if (J <= 0 || K <= 0 || K > J) return (int)cudaErrorInvalidValue;
-    const int kr = plan_registers(K);
-    int tile = MAX_TILE;
-    while (tile > MIN_TILE && tile * 32 > V) tile /= 2;
-    const int tiles = (V + tile - 1) / tile;
-    const int want = BLOCKS_PER_SM
-        * device_attribute(cudaDevAttrMultiProcessorCount);
-    int lanes = MAX_LANES;
-    while (lanes > 1 && (long long)tiles * ((B + lanes - 1) / lanes) < want)
-        lanes /= 2;
-    const size_t room =
-        (size_t)device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin);
-    while (shmem_bytes(tile, lanes, J, kr) > room) {
-        if (lanes > 1) lanes /= 2;
-        else if (tile > MIN_TILE) tile /= 2;
-        else return (int)cudaErrorInvalidValue;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    Config c;
+    {
+        std::lock_guard<std::mutex> lock(config_mutex);
+        auto it = std::find_if(configs.begin(), configs.end(),
+                               [&](const Config& k) {
+            return k.dev == dev && k.B == B && k.V == V && k.J == J && k.K == K;
+        });
+        if (it != configs.end()) {
+            c = *it;
+        } else {
+            err = make_config(dev, B, V, J, K, &c);
+            if (err != cudaSuccess) return (int)err;
+            configs.push_back(c);
+        }
     }
-    if ((B + lanes - 1) / lanes > MAX_GRID_Y) return (int)cudaErrorInvalidValue;
-    const size_t shmem = shmem_bytes(tile, lanes, J, kr);
-#define LBS_LAUNCH(KR) launch<KR>(cols, vals, A, v, out, B, V, J, K, tile, \
-                                  lanes, shmem, (cudaStream_t)stream)
-    switch (kr) {
-        case 4: return LBS_LAUNCH(4);
-        case 8: return LBS_LAUNCH(8);
-        case 16: return LBS_LAUNCH(16);
-        default: return LBS_LAUNCH(0);
-    }
-#undef LBS_LAUNCH
+    const dim3 block(32 * c.lanes);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (c.kr == 4)
+        lbs_kernel<4><<<c.grid, block, c.shmem, s>>>(
+            cols, vals, A, v, out, B, V, J, K, c.tile, c.chunk, c.lanes);
+    else
+        lbs_kernel<0><<<c.grid, block, c.shmem, s>>>(
+            cols, vals, A, v, out, B, V, J, K, c.tile, c.chunk, c.lanes);
+    return (int)cudaGetLastError();
 }

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from smplifyx_torch.ops.lbs import LBSPlan, lbs_plan
+from smplifyx_torch.ops.lbs import LBSPlan, check_plan, lbs_plan
 from smplifyx_torch.utils.device import resolve_device
 from smplifyx_torch.utils.tensors import TensorFields
 
@@ -89,6 +89,9 @@ class SMPLXModel(TensorFields):
     num_verts: int
     num_joints: int
     neck_kin_chain: tuple
+
+    def __post_init__(self):
+        check_plan(self.lbs_weights, self.lbs_plan, "SMPLXModel")
 
     @property
     def num_betas(self) -> int:

@@ -24,7 +24,7 @@ from smplifyx_torch.models.forward import (
     _head_yaw_bucket,
     _rigid_transform_chain,
 )
-from smplifyx_torch.ops.lbs import LBSPlan, lbs_apply, lbs_plan
+from smplifyx_torch.ops.lbs import LBSPlan, check_plan, lbs_apply, lbs_plan
 from smplifyx_torch.ops.rotation import batch_rodrigues
 from smplifyx_torch.utils.tensors import TensorFields
 
@@ -52,6 +52,9 @@ class JointsModel(TensorFields):
     parents: tuple
     neck_kin_chain: tuple
     num_joints: int
+
+    def __post_init__(self):
+        check_plan(self.sub_lbs, self.lbs_plan, "JointsModel")
 
 
 def build_joints_model(model: SMPLXModel) -> JointsModel:

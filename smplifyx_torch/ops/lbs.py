@@ -17,9 +17,13 @@ The kernel reads W through its column plan (`lbs_plan`): per vertex the
 columns of its nonzero weights in ascending order and their values,
 padded to the widest row with entries of weight zero.  Skinning weights
 are sparse (a few joints per vertex), so the kernel sums only those; a
-skipped zero changes no bit of the sum.  The models build their plans once
-(`SMPLXModel.lbs_plan`, `JointsModel.lbs_plan`); given no plan,
-`lbs_apply` builds one on the card.  `lbs_plan.builds` counts the builds.
+skipped zero changes no bit of the sum while A is finite (an Inf or NaN
+in A at a joint of weight zero reaches the dense sum, not this one).  The
+models build their plans once (`SMPLXModel.lbs_plan`,
+`JointsModel.lbs_plan`) and refuse a plan that is not their weights'
+(`check_plan`): the kernel reads the plan, the backward and the CPU path
+the weights.  Given no plan, `lbs_apply` builds one on the card.
+`lbs_plan.builds` counts the builds.
 
 The backward is the JAX package's `_bwd` in torch ops (`lbs_vjp`: rebuild
 T, then dA = W^T dT and dv = R^T g); weights get no gradient, they are
@@ -63,8 +67,7 @@ class LBSPlan(TensorFields):
                 and torch.equal(self.vals, other.vals))
 
 
-def lbs_plan(weights: torch.Tensor) -> LBSPlan:
-    """The column plan of weights [V, J], on their device."""
+def _column_plan(weights: torch.Tensor) -> LBSPlan:
     V, J = weights.shape
     nonzero = weights != 0
     K = max(1, int(nonzero.sum(1).max())) if V else 1
@@ -72,9 +75,25 @@ def lbs_plan(weights: torch.Tensor) -> LBSPlan:
     # Nonzero columns first, each group in ascending order.
     key = torch.where(nonzero, j, j + J)
     cols = torch.sort(key, dim=1).values[:, :K] % J
-    lbs_plan.builds += 1
     return LBSPlan(cols=cols.to(torch.int32).contiguous(),
                    vals=torch.gather(weights, 1, cols).contiguous())
+
+
+def lbs_plan(weights: torch.Tensor) -> LBSPlan:
+    """The column plan of weights [V, J], on their device."""
+    lbs_plan.builds += 1
+    return _column_plan(weights)
+
+
+def check_plan(weights: torch.Tensor, plan: LBSPlan, owner: str) -> None:
+    """Raise unless `plan` is `lbs_plan(weights)` (not counted as a build):
+    a model's plan and weights must not drift apart."""
+    same = (isinstance(plan, LBSPlan)
+            and plan.cols.device == plan.vals.device == weights.device
+            and plan == _column_plan(weights))
+    if not same:
+        raise ValueError(f"{owner}: lbs_plan is not the column plan of its "
+                         "skinning weights; build it with lbs_plan(weights)")
 
 
 def lbs_reference(weights: torch.Tensor, A: torch.Tensor,
@@ -149,14 +168,14 @@ def _check(weights, A, v_posed, plan):
             raise ValueError("lbs_apply: the plan must be contiguous")
 
 
+_max_joints: dict = {}     # device index -> lbs_max_joints() there
+
+
 def _kernel_forward(plan, A, v_posed):
     """Launch K1 on the current stream (CUDA tensors only)."""
     B, J = A.shape[:2]
     V, K = plan.cols.shape
     lib = _load()
-    if J > lib.lbs_max_joints():
-        raise ValueError(f"lbs kernel takes J <= {lib.lbs_max_joints()} (its "
-                         f"shared memory), got {J}")
     if B * V * 3 >= 2 ** 31 or B * J * 16 >= 2 ** 31:
         raise ValueError("lbs kernel indexes below 2^31 elements")
     if any(t.data_ptr() % 16 for t in (A, v_posed, plan.cols, plan.vals)):
@@ -164,6 +183,12 @@ def _kernel_forward(plan, A, v_posed):
                          "words: they must start 16-byte aligned")
     out = torch.empty_like(v_posed)
     with torch.cuda.device(v_posed.device):
+        limit = _max_joints.get(v_posed.device.index)
+        if limit is None:
+            limit = _max_joints[v_posed.device.index] = lib.lbs_max_joints()
+        if J > limit:
+            raise ValueError(f"lbs kernel takes J <= {limit} (its shared "
+                             f"memory), got {J}")
         stream = torch.cuda.current_stream(v_posed.device).cuda_stream
         err = lib.lbs_forward(
             plan.cols.data_ptr(), plan.vals.data_ptr(), A.data_ptr(),

@@ -8,9 +8,9 @@ weights per vertex), at the main path's full-mesh shapes (B=256 and 128,
 V=10475) and at its landmark subset (B=256, V=224):
 
   * `kernel`: `csrc/lbs.cu` as shipped;
-  * `rows_only`: the same source with the sum switched off, so a block
-    stages A, the plan and each tile's rows and stores the rows back
-    unchanged: K1's memory path alone;
+  * `rows_only`: the same source built with `-DLBS_NO_SUM`, which
+    switches the sum off, so a block stages A, the plan and each tile's
+    rows and stores the rows back unchanged: K1's memory path alone;
   * `copy`: a plain float4 copy of v_posed into out, the same bytes in and
     out, as a yardstick of what a copy reaches on this card.
 
@@ -34,9 +34,6 @@ import torch
 from smplifyx_torch.models.sparse import build_joints_model
 from smplifyx_torch.ops import lbs, nvcc
 from smplifyx_torch.problem import slice_model
-
-# The sum's block in lbs_kernel, switched off for `rows_only`.
-SUM_BLOCK = "        if (l < nl) {\n"
 
 COPY_SOURCE = r"""
 #include <cuda_runtime.h>
@@ -64,19 +61,17 @@ extern "C" int lbs_forward(const int*, const float*, const float*,
 
 def build(out: Path) -> dict:
     out.mkdir(parents=True, exist_ok=True)
-    kernel = nvcc.source("lbs").read_text()
-    if kernel.count(SUM_BLOCK) != 1:
-        raise RuntimeError("csrc/lbs.cu no longer has the sum block this "
-                           "tool switches off")
-    sources = {"kernel": kernel,
-               "rows_only": kernel.replace(SUM_BLOCK, "        if (false) {\n"),
-               "copy": COPY_SOURCE}
+    (out / "copy.cu").write_text(COPY_SOURCE)
+    commands = {
+        "kernel": nvcc.build_command("lbs", out / "libkernel.so"),
+        "rows_only": nvcc.build_command("lbs", out / "librows_only.so")
+        + ["-DLBS_NO_SUM"],
+        "copy": nvcc.build_command("copy", out / "libcopy.so", out / "copy.cu"),
+    }
     procs = {}
-    for name, text in sources.items():
-        (out / f"{name}.cu").write_text(text)
+    for name, command in commands.items():
         procs[name] = subprocess.Popen(
-            nvcc.build_command(name, out / f"lib{name}.so", out / f"{name}.cu"),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            command, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()

@@ -173,6 +173,23 @@ class TestColumnPlan:
         moved = tm.to("cpu")
         assert moved.lbs_plan == tm.lbs_plan
 
+    @pytest.mark.parametrize("which", ["smplx", "joints"])
+    def test_models_refuse_a_plan_of_other_weights(self, which):
+        """The kernel reads the plan, the backward the weights: a model
+        whose weights change without their plan is refused."""
+        tm = convert.smplx_model(jfields(jbody.synthetic_model(num_verts=96,
+                                                               seed=3)), "cpu")
+        model, field = ((tm, "lbs_weights") if which == "smplx"
+                        else (build_joints_model(tm), "sub_lbs"))
+        other = getattr(model, field).flip(1).contiguous()  # same V and K
+        with pytest.raises(ValueError, match="column plan"):
+            dataclasses.replace(model, **{field: other})
+        before = tlbs.lbs_plan.builds
+        same = dataclasses.replace(model, **{field: other,
+                                             "lbs_plan": tlbs.lbs_plan(other)})
+        assert tlbs.lbs_plan.builds == before + 1   # the check builds none
+        assert same.lbs_plan == tlbs.lbs_plan(other)
+
     def test_forwards_pass_the_models_plans_and_build_none(self, monkeypatch):
         jm = jbody.synthetic_model(num_verts=96, seed=2)
         tm = convert.smplx_model(jfields(jm), "cpu")
