@@ -13,10 +13,20 @@ user calls
 (build_fit_session -> FitSession.fit -> recover_outputs, B=128 frames of a
 full-width synthetic SMPL-X, V=10475; `smplifyx_torch.problem.build_slice`):
 
-  * the main path: the combined preset with the collision term in body
-    stages 1-2, on the slice's model (`problem.slice_model`) and its part
-    segmentation;
-  * the collision-off path of the first slice (`interpenetration=False`).
+  * the collision-on path: the combined preset with the collision term in
+    body stages 1-2, on the slice's model (`problem.slice_model`) and its
+    part segmentation;
+  * the collision-off path of the first slice (`interpenetration=False`);
+
+and the app path through the command line a user runs
+(`python -m smplifyx_torch.cli`, `smplifyx_torch.cli.main`): the VPoser
+combined preset (`cfg/fit_smplx_combined_vposer_coco25.yaml`, collision on
+in body stages 1-2) from the files `problem.write_app_inputs` writes into
+a temporary directory (the slice's model as an SMPL-X .npz, its part
+segmentation, a VPoser checkpoint, 128 PNGs with OpenPose JSONs, ExPose
+and PIXIE results), run twice (the second timed, with its `Timer` spans),
+its loaded model and prepared keypoints held equal to the in-memory ones,
+and 4 of its frames refitted on the CPU through `app.run`.
 
 Each path's kernel launch counts are set to 0 just before its timed fit
 and read just after (K1's split into full-mesh and landmark-subset
@@ -36,12 +46,15 @@ repository, it fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 FWD_TOL = 1e-5      # f32 sums over J=55 in another order
 GRAD_TOL = 1e-4     # the bound of tests/test_lbs_pallas.py, per unit of scale
@@ -63,6 +76,9 @@ LANE_LOSS_RTOL = 0.05
 # index moves either by O(1).
 SAME_X_VALUE_RTOL = 1e-3
 SAME_X_GRAD_TOL = 1e-2
+
+APP_FRAMES = 128    # frames of the app path (one gender group, B=128)
+APP_CPU_FRAMES = 4  # of them refitted on the CPU; median loss within 5%
 
 # Data-sheet peaks (dense, no sparsity): FP32 on the CUDA cores, memory rate.
 PEAKS = {  # name fragment -> (FP32 FLOP/s, bytes/s)
@@ -826,6 +842,198 @@ def phase_lane_reference(label, card_session, card_model, res, frames, x0,
                              f"value {f_rel:.3g}, gradient {g_err:.3g}")
 
 
+class FitCounter:
+    """Counts, over every `FitSession.fit` inside the block, the skinning
+    plans (`lbs_plan.builds`) and row plans built while the fit ran, and
+    keeps the camera stage's largest evaluation count."""
+
+    def __enter__(self):
+        from smplifyx_torch.ops.gather import row_plan
+        from smplifyx_torch.ops.lbs import lbs_plan
+        from smplifyx_torch.session import FitSession
+
+        self.counts = {"fits": 0, "lbs_plan": 0, "row_plan": 0,
+                       "camera_evals_max": 0}
+        self._fit = fit = FitSession.fit
+
+        def counted(session, *args):
+            before = lbs_plan.builds, row_plan.builds
+            res = fit(session, *args)
+            self.counts["fits"] += 1
+            self.counts["lbs_plan"] += lbs_plan.builds - before[0]
+            self.counts["row_plan"] += row_plan.builds - before[1]
+            self.counts["camera_evals_max"] = max(
+                self.counts["camera_evals_max"], int(res.camera_evals.max()))
+            return res
+
+        FitSession.fit = counted
+        return self.counts
+
+    def __exit__(self, *exc):
+        from smplifyx_torch.session import FitSession
+
+        FitSession.fit = self._fit
+
+
+def app_losses(out_dir, names):
+    from smplifyx_torch.utils.io import load_result_pickle
+
+    return [load_result_pickle(os.path.join(out_dir, "results", n, "000.pkl"))
+            ["loss"] for n in names]
+
+
+def phase_app():
+    """The command line on the card: the VPoser combined preset, collision
+    on, B=128, V=10475, from files.  Run twice (the first warms up); the
+    launch counts are set to 0 just before the second run and read just
+    after.  Returns the second run's launches."""
+    import tempfile
+    import types
+
+    import torch
+
+    from smplifyx_torch import cli
+    from smplifyx_torch.app import regression_priors, run
+    from smplifyx_torch.data.keypoints import create_dataset
+    from smplifyx_torch.fitting.checkpoint import warm_start_from_results
+    from smplifyx_torch.fitting.prepare import prepare_batch
+    from smplifyx_torch.models.bodymodel import SMPLX_EXTRA_JOINT_VIDS
+    from smplifyx_torch.models.sparse import build_joints_model
+    from smplifyx_torch.problem import (APP_PRESET, SLICE_VERTS, slice_model,
+                                        write_app_inputs)
+    from smplifyx_torch.session import build_fit_session
+    from smplifyx_torch.utils.config import parse_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        inputs = write_app_inputs(tmp, APP_FRAMES)
+        inputs_s = time.perf_counter() - t0
+        ref = slice_model(SLICE_VERTS, "cpu")
+        model_equal = {
+            name: bool(torch.equal(getattr(ref, name), getattr(inputs.model, name)))
+            for name, v in vars(ref).items()
+            if isinstance(v, torch.Tensor) and name != "extra_joint_vids"}
+        # Not in the .npz layout: the loader takes the family's published
+        # ids (below V).
+        model_equal["extra_joint_vids_published"] = bool(torch.equal(
+            inputs.model.extra_joint_vids, torch.as_tensor(np.minimum(
+                SMPLX_EXTRA_JOINT_VIDS, ref.num_verts - 1), dtype=torch.int64)))
+
+        flags = [f"--{k}={v}" for k, v in inputs.overrides.items()]
+        argv = ["--config", APP_PRESET, *flags]
+        outs = [os.path.join(tmp, f"out{i}") for i in range(3)]
+
+        t0 = time.perf_counter()
+        cli.main(argv + ["--output_folder", outs[0]])
+        first_s = time.perf_counter() - t0
+
+        cfg = parse_cli(argv + ["--output_folder", outs[1]])
+        reset_counts()
+        with FitCounter() as plans:
+            t0 = time.perf_counter()
+            result = run(cfg)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        launches = read_counts()
+
+        names = result.names
+        first = app_losses(outs[0], names)
+        second = app_losses(outs[1], names)
+        files = {
+            "pkl": len(result.result_files),
+            "obj": len(result.mesh_files),
+            "ply": sum(os.path.exists(os.path.join(outs[1], "results", n,
+                                                   "vertices.ply"))
+                       for n in names)}
+
+        # The batch the app prepared, rebuilt from the same files: its
+        # keypoints and confidences against the in-memory problem's.
+        session = build_fit_session(cfg)
+        records = list(create_dataset(
+            format=cfg.format, data_folder=cfg.data_folder,
+            use_hands=cfg.use_hands, use_face=cfg.use_face,
+            use_face_contour=cfg.use_face_contour,
+            joints_to_ign=cfg.joints_to_ign))
+        batch = prepare_batch(cfg, records, session.joint_weights(),
+                              regression=regression_priors(cfg, records),
+                              vposer=session.vposer, device="cuda")
+        read_equal = {
+            "gt_joints": bool(torch.equal(batch.frames.gt_joints.cpu(),
+                                          inputs.frames.gt_joints)),
+            "conf": bool(torch.equal(batch.frames.conf.cpu(),
+                                     inputs.frames.conf))}
+
+        # Reprojection of the written results: the pickles' parameters
+        # (decoded body pose) packed without VPoser.
+        plain = dataclasses.replace(session.settings, use_vposer=False)
+        x, found = warm_start_from_results(os.path.join(outs[1], "results"),
+                                           names, plain)
+        model = session.get_model("neutral")
+        view = types.SimpleNamespace(settings=plain, decode_body=lambda b: b,
+                                     joint_map=session.joint_map)
+        reproj, _ = reprojection_px(view, model, batch.frames,
+                                    torch.as_tensor(x, device="cuda"))
+        del session, model, batch
+
+        # A few frames again on the CPU, through the same entry point.
+        t0 = time.perf_counter()
+        cpu = run(parse_cli(argv + ["--output_folder", outs[2]]),
+                  max_frames=APP_CPU_FRAMES, device="cpu")
+        cpu_s = time.perf_counter() - t0
+
+    card = np.asarray(second[:APP_CPU_FRAMES])
+    cpu_rel = np.abs(cpu.losses - card) / np.abs(cpu.losses)
+    median_rel = abs(float(np.median(cpu.losses)) - float(np.median(card))) \
+        / abs(float(np.median(card)))
+    jm_rows = build_joints_model(inputs.model).sub_lbs.shape[0]
+    by_rows = launches["lbs_by_rows"]
+    lbs_split = {"full_mesh": by_rows.get(SLICE_VERTS, 0),
+                 "subset": by_rows.get(jm_rows, 0)}
+    fit_s = result.spans["fit"]
+    row = {
+        "phase": "app", "preset": os.path.basename(APP_PRESET),
+        "card": torch.cuda.get_device_name(0),
+        "B": len(names), "V": SLICE_VERTS, "inputs_s": inputs_s,
+        "first_run_s": first_s, "run_s": run_s,
+        "frames_per_s": len(names) / run_s,
+        "fit_frames_per_s": len(names) / fit_s,
+        "spans": result.spans, "host_reads": result.host_reads,
+        "launches": launches, "lbs_launches": lbs_split,
+        "fit_counts": plans, "files": files,
+        "model_equal": model_equal, "read_equal": read_equal,
+        "rerun_bit_equal": first == second,
+        "loss_median": float(np.median(second)),
+        "reproj_px_median": float(reproj.median()),
+        "reproj_px_max": float(reproj.max()),
+        "stats": result.stats,
+        "cpu_frames": APP_CPU_FRAMES, "cpu_run_s": cpu_s,
+        "loss_card": card.tolist(), "loss_cpu": cpu.losses.tolist(),
+        "cpu_rel_diff": cpu_rel.tolist(), "cpu_median_rel_diff": median_rel,
+    }
+    emit(row)
+    if not all(model_equal.values()):
+        raise AssertionError(f"the loaded model differs: {model_equal}")
+    if not all(read_equal.values()):
+        raise AssertionError(f"keypoints read from the JSONs differ: {read_equal}")
+    if files != {"pkl": APP_FRAMES, "obj": APP_FRAMES, "ply": APP_FRAMES}:
+        raise AssertionError(f"the app wrote {files} for {APP_FRAMES} frames")
+    if first != second:
+        raise AssertionError("two app runs of the same files differ")
+    if not (np.isfinite(second).all() and found.all()):
+        raise AssertionError("a loss is not finite or a result is missing")
+    for name in ("lbs", "gather", "scatter", "scatter_join"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the app run never launched the {name} kernel")
+    if not (lbs_split["full_mesh"] > 0 and lbs_split["subset"] > 0):
+        raise AssertionError(f"the app run launched K1 {lbs_split}")
+    if plans["lbs_plan"] != 0 or plans["fits"] != 1:
+        raise AssertionError(f"the app's fits built skinning plans: {plans}")
+    if not median_rel <= LANE_LOSS_RTOL:
+        raise AssertionError(f"the CPU's median final loss differs from the "
+                             f"card's by {median_rel:.3g} > {LANE_LOSS_RTOL}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, shape_keys, **extra):
     main = rows[0]
     entry = {
@@ -894,19 +1102,29 @@ def main() -> int:
     phase_lane_reference("collision_off", session, model, res, frames, x0,
                          **off)
 
+    # ---- the app path: the command line, from files
+    app = phase_app()
+
     for r in lbs_rows:
         r["max_abs_err"] = r["fwd_max_abs_err"]
+
+    def by_path(name):
+        return {"app": app[name], "collision_on": launches[name]}
+
     emit({"kernels": [
         kernel_entry("lbs", "smplifyx_torch/csrc/lbs.cu",
-                     "smplifyx_tpu/ops/lbs_pallas.py:65", launches["lbs"],
-                     lbs_rows, ("B", "V", "J", "K")),
+                     "smplifyx_tpu/ops/lbs_pallas.py:65", app["lbs"],
+                     lbs_rows, ("B", "V", "J", "K"),
+                     launches_by_path=by_path("lbs")),
         kernel_entry("gather", "smplifyx_torch/csrc/gather.cu",
-                     "smplifyx_tpu/ops/gather_pallas.py:76", launches["gather"],
-                     gathers, ("B", "N", "R", "C")),
+                     "smplifyx_tpu/ops/gather_pallas.py:76", app["gather"],
+                     gathers, ("B", "N", "R", "C"),
+                     launches_by_path=by_path("gather")),
         kernel_entry("scatter", "smplifyx_torch/csrc/gather.cu",
                      "smplifyx_tpu/ops/gather_pallas.py:111",
-                     launches["scatter"], scatters, ("B", "R", "C", "num_rows"),
-                     join_launches=launches["scatter_join"]),
+                     app["scatter"], scatters, ("B", "R", "C", "num_rows"),
+                     join_launches=app["scatter_join"],
+                     launches_by_path=by_path("scatter")),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,7 @@ from smplifyx_torch.fitting.energy import FrameData, StageWeights
 from smplifyx_torch.fitting.params import FitSettings
 from smplifyx_torch.models.bodymodel import SMPLXModel, model_from_arrays
 from smplifyx_torch.models.sparse import JointsModel
+from smplifyx_torch.models.vposer import VPoser, vposer_from_state_dict
 from smplifyx_torch.ops.collision import CollisionAux, make_aux
 from smplifyx_torch.ops.lbs import lbs_plan
 from smplifyx_torch.priors.priors import GMMPrior
@@ -69,6 +70,26 @@ def frame_data(fields: dict, device="cuda") -> FrameData:
 def fit_settings(fields: dict) -> FitSettings:
     return FitSettings(**{f.name: fields[f.name]
                           for f in dataclasses.fields(FitSettings)})
+
+
+def vposer(params: dict, device="cuda") -> VPoser:
+    """The JAX package's VPoser parameter tree (numpy leaves:
+    decoder/encoder {name: {kernel, bias} or {scale, bias}}, encoder_stats
+    {name: {mean, var}}) -> the port's VPoser.  A flax Dense kernel is
+    [in, out]; a torch Linear weight is [out, in]."""
+    sd = {}
+    for part, prefix in (("decoder", "bodyprior_dec_"),
+                         ("encoder", "bodyprior_enc_")):
+        for name, leaves in params[part].items():
+            if "kernel" in leaves:
+                sd[prefix + name + ".weight"] = np.asarray(leaves["kernel"]).T
+            else:
+                sd[prefix + name + ".weight"] = np.asarray(leaves["scale"])
+            sd[prefix + name + ".bias"] = np.asarray(leaves["bias"])
+    for name, stats in params["encoder_stats"].items():
+        sd[f"bodyprior_enc_{name}.running_mean"] = np.asarray(stats["mean"])
+        sd[f"bodyprior_enc_{name}.running_var"] = np.asarray(stats["var"])
+    return vposer_from_state_dict(sd, device)
 
 
 def collision_aux(aux: tuple, device="cuda") -> CollisionAux:

@@ -48,6 +48,9 @@ class FitOptions:
     camera_lbfgs: LBFGSConfig = field(default_factory=LBFGSConfig)
     try_both_orient: bool = False
     optim_type: str = "lbfgsls"
+    # Run guess-init and the stage-0 camera fit.  Off to resume the body
+    # stages from an x0 whose camera is already fitted (`fit_stages`).
+    camera_stage: bool = True
     side_view_thsh: float = 25.0
     left_shoulder_idx: int = 2
     right_shoulder_idx: int = 5
@@ -68,7 +71,7 @@ class FitResult:
     flipped: torch.Tensor       # [B] bool: the 180-degree orientation won
     stage_losses: torch.Tensor  # [S, B] energy after each body stage
     stage_evals: torch.Tensor   # [S, B] objective evaluations per body stage
-    camera_evals: torch.Tensor  # [B] objective evaluations of stage 0
+    camera_evals: torch.Tensor  # [B] evaluations of stage 0; 0 when skipped
     host_reads: int             # device -> host reads steering the loops
 
 
@@ -130,7 +133,7 @@ def fit_batch(
     reads = 0
 
     # ---- camera translation init (guess_init path)
-    if not options.use_camera_prior:
+    if not options.use_camera_prior and options.camera_stage:
         if edge_idxs is None:
             raise ValueError("the guess-init path needs edge_idxs")
         with torch.no_grad():
@@ -145,17 +148,22 @@ def fit_batch(
         x0 = pack(settings, **seg)
 
     # ---- stage 0: camera
-    cam_res = minimize(
-        lambda x: camera_init_energy(x, settings, model, frames,
-                                     decode_body, joint_map,
-                                     joints_model=joints_model),
-        x0, camera_stage_mask(settings, dev), options.camera_lbfgs,
-    )
-    reads += cam_res.host_reads
-    x_cam = cam_res.x
-    # Recorded before the doubling: a flipped winner shares this camera.
-    camera_loss = cam_res.f
-    camera_evals = cam_res.n_evals
+    if options.camera_stage:
+        cam_res = minimize(
+            lambda x: camera_init_energy(x, settings, model, frames,
+                                         decode_body, joint_map,
+                                         joints_model=joints_model),
+            x0, camera_stage_mask(settings, dev), options.camera_lbfgs,
+        )
+        reads += cam_res.host_reads
+        x_cam = cam_res.x
+        # Recorded before the doubling: a flipped winner shares this camera.
+        camera_loss = cam_res.f
+        camera_evals = cam_res.n_evals
+    else:
+        x_cam = x0
+        camera_loss = torch.zeros(B, dtype=x0.dtype, device=dev)
+        camera_evals = torch.zeros(B, dtype=torch.int64, device=dev)
 
     # ---- optional dual orientation: double the batch
     if options.try_both_orient:

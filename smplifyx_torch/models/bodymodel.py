@@ -1,4 +1,5 @@
-"""SMPL-X body model data: structure, the npz loader and synthetic models.
+"""SMPL-X body model data: structure, the .npz/.pkl loader and synthetic
+models.
 
 Counterpart of `smplifyx_tpu/models/bodymodel.py`.  The model is a
 dataclass of tensors consumed by the plain forward function in
@@ -10,6 +11,7 @@ build identical arrays from one seed.
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from dataclasses import dataclass
 
 import numpy as np
@@ -144,6 +146,84 @@ def _neck_kin_chain(parents, head_idx: int = 15) -> tuple:
     return tuple(chain)
 
 
+class _ForeignStub:
+    """Tolerant stand-in for chumpy/scipy objects inside legacy .pkl
+    artifacts: captures the pickled state so the array payload ('x' for
+    chumpy.Ch, 'data/indices/indptr/_shape' for scipy CSC) can be
+    recovered without those packages installed."""
+
+    # (module, name) of the original class, recorded by the unpickler so
+    # consumers can branch on what the stub stands in for.
+    _origin: tuple = ("", "")
+
+    def __init__(self, *args, **kwargs):
+        self._args = args
+
+    def __setstate__(self, state):
+        self.__dict__.update(state if isinstance(state, dict) else {})
+
+
+def _to_dense(v) -> np.ndarray:
+    """numpy array | chumpy stub | scipy-sparse stub/object -> dense array."""
+    if isinstance(v, np.ndarray):
+        return v
+    if hasattr(v, "toarray"):           # real scipy matrix
+        return np.asarray(v.toarray())
+    x = getattr(v, "x", None)           # chumpy.Ch payload
+    if x is not None:
+        return np.asarray(x)
+    d = getattr(v, "__dict__", {})
+    if {"data", "indices", "indptr"} <= d.keys():   # pickled sparse state
+        # CSR and CSC pickle with identical state keys; rebuilding a CSR
+        # matrix column-wise would transpose it.  Branch on the recorded
+        # class name; unknown compressed formats fail loudly.
+        origin = getattr(v, "_origin", ("", ""))[1].lower()
+        is_csr = "csr" in origin
+        if origin and not is_csr and "csc" not in origin:
+            raise ValueError(
+                f"unsupported pickled sparse matrix class {origin!r} "
+                "(expected csc_matrix or csr_matrix)"
+            )
+        data, indices, indptr = d["data"], d["indices"], d["indptr"]
+        shape = d.get("_shape") or d.get("shape")
+        out = np.zeros(shape, np.float32)
+        if is_csr:
+            for row in range(shape[0]):
+                cols = indices[indptr[row]:indptr[row + 1]]
+                out[row, cols] = data[indptr[row]:indptr[row + 1]]
+        else:
+            for col in range(shape[1]):
+                rows = indices[indptr[col]:indptr[col + 1]]
+                out[rows, col] = data[indptr[col]:indptr[col + 1]]
+        return out
+    return np.asarray(v)
+
+
+def _read_artifact(path: str) -> dict:
+    """Load a body-model artifact (.npz or legacy .pkl) into {name: array}.
+    A .pkl is only for trusted files: unpickling can run code."""
+    if path.endswith(".pkl"):
+        class _Unpickler(pickle.Unpickler):
+            def find_class(self, module, name):
+                try:
+                    return super().find_class(module, name)
+                except (ImportError, AttributeError):
+                    # Per-origin stub subclass so _to_dense can tell CSC
+                    # from CSR (identical pickled state keys).
+                    return type(f"_ForeignStub_{name}", (_ForeignStub,),
+                                {"_origin": (module, name)})
+
+            def persistent_load(self, pid):
+                return None
+
+        with open(path, "rb") as f:
+            raw = _Unpickler(f, encoding="latin1").load()
+        return {k: _to_dense(v) for k, v in raw.items()
+                if not isinstance(v, (str, bytes, type(None)))}
+    raw = np.load(path, allow_pickle=True)
+    return {k: raw[k] for k in raw.files}
+
+
 def load_body_model(
     path: str,
     model_type: str = "smplx",
@@ -152,18 +232,12 @@ def load_body_model(
     num_pca_comps: int = 12,
     device="cuda",
 ) -> SMPLXModel:
-    """Load a body-model .npz artifact (SMPL-X, SMPL-H or SMPL layout).
-
-    Field conventions follow the published layouts, as in the JAX
-    package's loader.  Legacy .pkl artifacts are not read by the port yet.
+    """Load a body-model artifact, .npz or legacy .pkl (chumpy arrays and
+    scipy-sparse matrices read without those packages), in the SMPL-X,
+    SMPL-H or SMPL layout.  Field conventions follow the published
+    layouts, as in the JAX package's loader.
     """
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: the port reads .npz body models only (the .pkl loader "
-            "is a later port item, ROADMAP queue 1 item 3)"
-        )
-    raw = np.load(path, allow_pickle=True)
-    d = {k: raw[k] for k in raw.files}
+    d = _read_artifact(path)
     has_face = model_type == "smplx"
     has_hands = model_type in ("smplx", "smplh")
 
@@ -223,7 +297,7 @@ def load_body_model(
     return model_from_arrays(dict(
         v_template=arr("v_template"), shapedirs=shape_cols,
         exprdirs=expr_cols, posedirs=posedirs,
-        J_regressor=np.asarray(d["J_regressor"], np.float32),
+        J_regressor=np.asarray(_to_dense(d["J_regressor"]), np.float32),
         lbs_weights=arr("weights"), faces=d["f"],
         extra_joint_vids=np.minimum(extra_vids, V - 1),
         **hands, **face,

@@ -48,7 +48,9 @@ def rotmat_to_aa(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrices [..., 3, 3] -> axis-angle [..., 3] (log map).
 
     Safe at angle ~ 0 (the skew part) and near pi (axis from the diagonal
-    of R + I, signs from the off-diagonals).
+    of R + I, signs from the off-diagonals).  Values equal the JAX
+    package's; the gradient stays finite where a diagonal entry is -1
+    (VPoser's decode differentiates through this in every evaluation).
     """
     batch_shape = R.shape[:-2]
     R = R.reshape(-1, 3, 3)
@@ -68,7 +70,14 @@ def rotmat_to_aa(R: torch.Tensor) -> torch.Tensor:
     generic = skew * (angle / (2.0 * sin + _EPS))[..., None]
 
     diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
-    axis_abs = torch.sqrt(torch.clamp((diag + 1.0) * 0.5, min=0.0))
+    axis_sq = torch.clamp((diag + 1.0) * 0.5, min=0.0)
+    # sqrt's derivative is infinite at 0, and the final `where` sends a zero
+    # gradient into this branch wherever it is not taken: 0 * inf = NaN.
+    # Where the square is 0 the root is the constant 0, off the graph; the
+    # values stay those of sqrt.
+    positive = axis_sq > 0.0
+    axis_abs = torch.where(
+        positive, torch.sqrt(torch.where(positive, axis_sq, 1.0)), 0.0)
     s01 = R[..., 0, 1] + R[..., 1, 0]
     s02 = R[..., 0, 2] + R[..., 2, 0]
     s12 = R[..., 1, 2] + R[..., 2, 1]

@@ -36,6 +36,11 @@ class GMMPrior(TensorFields):
         quad = torch.einsum("...kd,kde,...ke->...k", diff, self.precisions, diff)
         return torch.min(0.5 * quad - self.log_nll_weights, dim=-1).values
 
+    def mean_pose(self) -> torch.Tensor:
+        """Mixture mean, the pose init when nothing better exists
+        (reference fit_single_frame.py:252)."""
+        return self.weights @ self.means
+
 
 def _gmm_from_arrays(means, covs, weights, device) -> GMMPrior:
     precisions = np.stack([np.linalg.inv(c) for c in covs])

@@ -21,25 +21,43 @@ capsules meet.  Saturated, the surviving pair set hangs on f32 noise.  `slice_co
 session, model, joints model, frames and x0 through the entry points a
 user calls.  With `interpenetration=False` among the overrides it is the
 collision-off fit on `synthetic_model`.
+
+`write_app_inputs` writes the same problem as the files a user of the app
+has (an SMPL-X .npz, a part segmentation, a VPoser checkpoint, images,
+OpenPose keypoint JSONs, ExPose and PIXIE results), for `app.run` and
+`python -m smplifyx_torch.cli`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import os.path as osp
 import pickle
+import struct
 import tempfile
+import zlib
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from smplifyx_torch.fitting.energy import FrameData
 from smplifyx_torch.fitting.params import FitSettings, pack
-from smplifyx_torch.models.bodymodel import smooth_synthetic_model, synthetic_model
+from smplifyx_torch.models.bodymodel import (
+    SHAPE_SPACE_DIM,
+    SMPLXModel,
+    load_body_model,
+    smooth_synthetic_model,
+    synthetic_model,
+)
 from smplifyx_torch.models.forward import BodyParams, smplx_forward
 from smplifyx_torch.models.joint_mapping import model_to_annotation
 from smplifyx_torch.models.sparse import build_joints_model
+from smplifyx_torch.models.vposer import random_params
 from smplifyx_torch.ops.camera import CameraParams, project_points
+from smplifyx_torch.ops.rotation import batch_rodrigues
 from smplifyx_torch.session import build_fit_session
 from smplifyx_torch.utils.config import load_config
 from smplifyx_torch.utils.device import full_f32_matmuls, resolve_device
@@ -54,6 +72,9 @@ SLICE_VERTS = 10475     # full SMPL-X width
 FOCAL = 1498.0
 CENTER = (400.0, 300.0)
 IMG_H = 600.0
+IMG_W = 800.0
+APP_PRESET = osp.join(osp.dirname(SLICE_PRESET),
+                      "fit_smplx_combined_vposer_coco25.yaml")
 INIT_JOINTS = (9, 12, 2, 5)
 
 
@@ -190,3 +211,166 @@ def build_slice(batch: int = SLICE_BATCH, num_verts: int = SLICE_VERTS,
         batch, num_verts, settings=session.settings, device=device,
         model=model)
     return session, model, build_joints_model(model), frames, x0
+
+
+# ---------------------------------------------------------------- app inputs
+
+
+def write_smplx_npz(model: SMPLXModel, path: str) -> None:
+    """`model` in the published SMPL-X .npz layout (shape and expression
+    packed in `shapedirs` at columns 0 and SHAPE_SPACE_DIM, `posedirs`
+    [V, 3, P], `kintree_table`, `weights`, `f`, hand PCA, landmark
+    tables); `load_body_model` reads its arrays back exactly.  Extra joint
+    vertex ids are not part of the layout: the loader takes the family's."""
+    m = model.to("cpu")
+    V, K, E = m.num_verts, m.num_betas, m.num_expr
+    shapedirs = np.zeros((V, 3, SHAPE_SPACE_DIM + E), np.float32)
+    shapedirs[..., :K] = m.shapedirs.numpy()
+    shapedirs[..., SHAPE_SPACE_DIM:] = m.exprdirs.numpy()
+    parents = np.asarray(m.parents, np.int64)
+    np.savez(
+        path, v_template=m.v_template.numpy(), shapedirs=shapedirs,
+        posedirs=m.posedirs.numpy().T.reshape(V, 3, -1),
+        J_regressor=m.J_regressor.numpy(), weights=m.lbs_weights.numpy(),
+        f=m.faces.numpy().astype(np.uint32),
+        kintree_table=np.stack([np.where(parents < 0, 2**32 - 1, parents),
+                                np.arange(len(parents))]).astype(np.uint32),
+        hands_componentsl=m.left_hand_components.numpy(),
+        hands_componentsr=m.right_hand_components.numpy(),
+        hands_meanl=m.left_hand_mean.numpy(),
+        hands_meanr=m.right_hand_mean.numpy(),
+        lmk_faces_idx=m.lmk_faces_idx.numpy(),
+        lmk_bary_coords=m.lmk_bary_coords.numpy(),
+        dynamic_lmk_faces_idx=m.dyn_lmk_faces_idx.numpy(),
+        dynamic_lmk_bary_coords=m.dyn_lmk_bary_coords.numpy(),
+    )
+
+
+def png_bytes(width: int, height: int) -> bytes:
+    """A valid PNG of a black RGB image."""
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    row = b"\x00" * (1 + 3 * width)
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(row * height))
+            + chunk(b"IEND", b""))
+
+
+def openpose_person(kp: np.ndarray, **extra) -> dict:
+    """Keypoints [K, 3] of the coco25 format with hands, face and contour
+    (25 body, 21 + 21 hand, 51 landmark, 17 contour rows) -> one person of
+    an OpenPose JSON: face rows 0:17 the contour, 17:68 the landmarks,
+    68:70 (pupils) zero."""
+    kp = np.asarray(kp, np.float32)
+    face = np.zeros((70, 3), np.float32)
+    face[17:68], face[:17] = kp[67:118], kp[118:135]
+
+    def flat(a):
+        return [float(v) for v in a.reshape(-1)]
+
+    return {"person_id": [-1], "pose_keypoints_2d": flat(kp[:25]),
+            "hand_left_keypoints_2d": flat(kp[25:46]),
+            "hand_right_keypoints_2d": flat(kp[46:67]),
+            "face_keypoints_2d": flat(face), **extra}
+
+
+@dataclass
+class AppInputs:
+    overrides: dict     # config fields that point the app at the files
+    names: list         # frame names, in the dataset's order
+    model: SMPLXModel   # the model as load_body_model reads it back (CPU)
+    frames: object      # FrameData of the problem the files hold (CPU)
+
+
+def write_app_inputs(root: str, batch: int = SLICE_BATCH,
+                     num_verts: int = SLICE_VERTS, seed: int = 0,
+                     genders=None) -> AppInputs:
+    """Write `batch` frames of the slice's problem as a user's files under
+    `root`:
+
+        models/smplx/SMPLX_NEUTRAL.npz   slice_model(num_verts)
+        parts_segm.pkl                   its part segmentation
+        vposer.pt                        a VPoser v1 state_dict, random_params(seed)
+        data/images/<name>.png           800x600 headers
+        data/keypoints/<name>_keypoints.json
+        expose/<name>.jpg/<name>.jpg_params.npz
+        pixie/<name>/<name>_param.pkl
+
+    The keypoints and confidences are `build_problem`'s on the model read
+    back from the .npz.  The regression results are the ground-truth
+    poses (as rotation matrices) and cameras with noise from `seed`:
+    ExPose's translation in its f=5000 convention, PIXIE's camera and box
+    consistent with FOCAL.  `genders` (one per frame) adds `gender_pd`."""
+    model_dir = osp.join(root, "models", "smplx")
+    for d in ("models/smplx", "data/images", "data/keypoints", "expose", "pixie"):
+        os.makedirs(osp.join(root, d), exist_ok=True)
+    model = slice_model(num_verts, "cpu")
+    npz = osp.join(model_dir, "SMPLX_NEUTRAL.npz")
+    write_smplx_npz(model, npz)
+    loaded = load_body_model(npz, "smplx", device="cpu")
+    segm, parents = slice_part_segm(model)
+    segm_path = osp.join(root, "parts_segm.pkl")
+    with open(segm_path, "wb") as f:
+        pickle.dump({"segm": segm, "parents": parents}, f)
+    vposer_path = osp.join(root, "vposer.pt")
+    torch.save(random_params(seed), vposer_path)
+
+    _, _, frames, _, _ = build_problem(batch, model=loaded, device="cpu")
+    gt, cam_t = _ground_truth(np.random.default_rng(0), batch, "cpu")
+    rng = np.random.default_rng(seed)
+    body = gt.body_pose.numpy().reshape(batch, 21, 3)
+    orient = gt.global_orient.numpy()
+    cam = cam_t.numpy().astype(np.float64)
+    kps = torch.cat([frames.gt_joints, frames.conf[..., None]], -1).numpy()
+    png = png_bytes(int(IMG_W), int(IMG_H))
+
+    def rotmats(aa):
+        return batch_rodrigues(torch.as_tensor(aa, dtype=torch.float32)).numpy()
+
+    names = [f"frame_{i:04d}" for i in range(batch)]
+    for i, name in enumerate(names):
+        with open(osp.join(root, "data", "images", name + ".png"), "wb") as f:
+            f.write(png)
+        extra = {} if genders is None else {"gender_pd": genders[i]}
+        with open(osp.join(root, "data", "keypoints",
+                           name + "_keypoints.json"), "w") as f:
+            json.dump({"version": 1.3,
+                       "people": [openpose_person(kps[i], **extra)]}, f)
+        noisy = body[i] + rng.normal(0, 0.05, (21, 3))
+        tx, ty, tz = cam[i] + rng.normal(0, 0.02, 3)
+        exp_dir = osp.join(root, "expose", name + ".jpg")
+        os.makedirs(exp_dir, exist_ok=True)
+        np.savez(osp.join(exp_dir, name + ".jpg_params.npz"),
+                 body_pose=rotmats(noisy),
+                 global_orient=rotmats(orient[i][None]),
+                 transl=np.array([tx, ty, tz * 5000.0 / FOCAL], np.float32),
+                 center=np.asarray(CENTER, np.float32))
+        # A square box of side b about the image centre and a scale s with
+        # 2 * FOCAL / (s * int(1.1 * b)) = tz.
+        b = 400.0
+        s = 2.0 * FOCAL / (tz * int(b * 1.1))
+        pix_dir = osp.join(root, "pixie", name)
+        os.makedirs(pix_dir, exist_ok=True)
+        with open(osp.join(pix_dir, name + "_param.pkl"), "wb") as f:
+            pickle.dump({
+                "body_pose": rotmats(body[i] + rng.normal(0, 0.05, (21, 3))),
+                "global_pose": rotmats(orient[i][None])[0],
+                "bbox": np.array([CENTER[0] - b / 2, CENTER[1] - b / 2,
+                                  CENTER[0] + b / 2, CENTER[1] + b / 2],
+                                 np.float32),
+                "body_cam": np.array([s, tx, ty], np.float32),
+            }, f)
+    overrides = dict(
+        data_folder=osp.join(root, "data"),
+        model_folder=osp.join(root, "models"),
+        part_segm_fn=segm_path,
+        expose_results_directory=osp.join(root, "expose"),
+        pixie_results_directory=osp.join(root, "pixie"),
+        vposer_ckpt=vposer_path,
+        use_gender_classifier=False,
+    )
+    return AppInputs(overrides=overrides, names=names, model=loaded,
+                     frames=frames)

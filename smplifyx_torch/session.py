@@ -2,15 +2,21 @@
 
 Counterpart of `smplifyx_tpu/session.py`: `build_fit_session` validates a
 config and assembles everything `FitSession.fit` needs to run the staged
-fit (fitting/pipeline.py::fit_batch) on a prepared batch.
+fit (fitting/pipeline.py::fit_batch) on a prepared batch: body models per
+gender ({model_folder}/{family}/{FAMILY}_{GENDER}.npz, else .pkl), the
+priors (GMMs, VPoser), the stage schedule, the optimizer options and the
+collision term.  `FitSession.fit_stages` runs the same fit one stage per
+call.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os.path as osp
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
+import numpy as np
 import torch
 
 from smplifyx_torch.fitting.lbfgs import LBFGSConfig
@@ -20,13 +26,20 @@ from smplifyx_torch.fitting.prepare import _norm_prior, settings_from_config
 from smplifyx_torch.fitting.stages import build_stage_schedule
 from smplifyx_torch.models.bodymodel import load_body_model, synthetic_model
 from smplifyx_torch.models.joint_mapping import (
+    NUM_BODY_JOINTS_BY_FORMAT,
     SHOULDER_IDXS_BY_FORMAT,
     model_to_annotation,
+)
+from smplifyx_torch.models.vposer import (
+    VPoser,
+    load_vposer,
+    random_params,
+    vposer_from_state_dict,
 )
 from smplifyx_torch.ops.collision import load_part_segm, make_collision_fn
 from smplifyx_torch.priors.priors import load_gmm_pickle
 from smplifyx_torch.utils.config import Config
-from smplifyx_torch.utils.device import resolve_device
+from smplifyx_torch.utils.device import device_for_platform, resolve_device
 
 
 @dataclass
@@ -40,6 +53,7 @@ class FitSession:
     joint_map: torch.Tensor
     edge_idxs: torch.Tensor
     decode_body: Callable
+    vposer: Optional[VPoser]
     gmm: object
     lhand_gmm: object
     rhand_gmm: object
@@ -59,24 +73,71 @@ class FitSession:
             collision_fn=self.collision_fn, device=self.device,
         )
 
+    def fit_stages(self, model, joints_model, frames,
+                   x0) -> Iterator[tuple[int, FitResult]]:
+        """Yield (stage, FitResult) after the head (camera stage and body
+        stage 0) and after every later body stage, as the JAX package's
+        `FitSession.fit_stages` does.
+
+        Each stage is one `fit_batch` over a one-stage schedule, so the
+        dual-orientation choice is made after the head and later stages
+        refine the winner only, and a VPoser fit with a regression prior
+        takes the last stage's deviation prior in every stage (both as in
+        the JAX package).  Later stages skip the camera stage
+        (`FitOptions.camera_stage=False`) and start from the previous x.
+        """
+        num_stages = self.schedule.num_stages
+        mask = self.coll_stage_mask or (False,) * num_stages
+        body_options = dataclasses.replace(self.options, camera_stage=False,
+                                           try_both_orient=False)
+        x = x0
+        for k in range(num_stages):
+            res = fit_batch(
+                model, self.settings, self.options if k == 0 else body_options,
+                self.schedule.map(lambda a, k=k: a[k:k + 1]), frames, x,
+                self.decode_body, self.joint_map, gmm=self.gmm,
+                edge_idxs=self.edge_idxs, joints_model=joints_model,
+                coll_stage_mask=(mask[k],), lhand_gmm=self.lhand_gmm,
+                rhand_gmm=self.rhand_gmm, collision_fn=self.collision_fn,
+                device=self.device,
+            )
+            x = res.x
+            yield k, res
+
+    def joint_weights(self) -> np.ndarray:
+        """Base per-keypoint weights of this config's format and flags:
+        the dataset-free equivalent of `get_joint_weights()`."""
+        cfg = self.cfg
+        n = NUM_BODY_JOINTS_BY_FORMAT[cfg.format.lower()]
+        if cfg.use_hands:
+            n += 42
+        if cfg.use_face:
+            n += 51 + 17 * bool(cfg.use_face_contour)
+        w = np.ones(n, np.float32)
+        if cfg.joints_to_ign and -1 not in cfg.joints_to_ign:
+            w[np.asarray(cfg.joints_to_ign)] = 0.0
+        return w
+
 
 def _identity(b):
     return b
 
 
-def build_fit_session(cfg: Config, model=None, device="cuda") -> FitSession:
-    """Validate the config and assemble a FitSession (no dataset IO)."""
-    dev = resolve_device(device)
+def build_fit_session(cfg: Config, model=None, device=None) -> FitSession:
+    """Validate the config and assemble a FitSession (no dataset IO).
+    `device` overrides the config's `platform`."""
+    dev = resolve_device(device or device_for_platform(cfg.platform))
     if cfg.float_dtype != "float32":
         raise NotImplementedError(
             f"float_dtype={cfg.float_dtype!r}: only float32 is supported")
     if cfg.camera_type != "persp":
         raise NotImplementedError(
             f"camera_type={cfg.camera_type!r}: only 'persp' is supported")
-    if cfg.use_vposer:
+    if cfg.visualize:
         raise NotImplementedError(
-            "use_vposer: true needs VPoser, which is not ported yet "
-            "(ROADMAP queue 1 item 4)"
+            "visualize: true needs the overlays and per-stage snapshots "
+            "(keep_stage_params, stage_x) of viz/, which are not ported yet "
+            "(ROADMAP queue 1)"
         )
     if cfg.optim_type.lower() not in ("lbfgs", "lbfgsls"):
         raise NotImplementedError(
@@ -96,8 +157,12 @@ def build_fit_session(cfg: Config, model=None, device="cuda") -> FitSession:
                 num_pca_comps=cfg.num_pca_comps, model_type=cfg.model_type,
                 device=dev,
             )
-        path = osp.join(cfg.model_folder, cfg.model_type,
-                        f"{cfg.model_type.upper()}_{gender.upper()}.npz")
+        # The layout smplx.create resolves in the reference
+        # (main.py:109-127): .npz first, then .pkl.
+        stem = osp.join(cfg.model_folder, cfg.model_type,
+                        f"{cfg.model_type.upper()}_{gender.upper()}")
+        path = next((p for p in (stem + ".npz", stem + ".pkl")
+                     if osp.exists(p)), stem + ".npz")
         return load_body_model(
             path, cfg.model_type, num_betas=cfg.num_betas,
             num_expression_coeffs=cfg.num_expression_coeffs,
@@ -126,6 +191,17 @@ def build_fit_session(cfg: Config, model=None, device="cuda") -> FitSession:
                 f"num_pca_comps={cfg.num_pca_comps}"
             )
         return prior
+
+    vposer = None
+    decode_body = _identity
+    if cfg.use_vposer:
+        if str(cfg.vposer_ckpt).lower() in ("", "synthetic"):
+            # Random weights when the licensed checkpoint is absent, like
+            # synthetic_model (not the JAX package's random weights).
+            vposer = vposer_from_state_dict(random_params(0), dev)
+        else:
+            vposer = load_vposer(osp.expandvars(cfg.vposer_ckpt), dev)
+        decode_body = vposer.decode
 
     collision_fn = coll_stage_mask = None
     if cfg.interpenetration:
@@ -179,8 +255,8 @@ def build_fit_session(cfg: Config, model=None, device="cuda") -> FitSession:
                                 device=dev)
     return FitSession(
         cfg=cfg, settings=settings, options=options, schedule=schedule,
-        joint_map=joint_map, edge_idxs=edge_idxs, decode_body=_identity,
-        gmm=gmm, lhand_gmm=hand_gmm(cfg.left_hand_prior_type),
+        joint_map=joint_map, edge_idxs=edge_idxs, decode_body=decode_body,
+        vposer=vposer, gmm=gmm, lhand_gmm=hand_gmm(cfg.left_hand_prior_type),
         rhand_gmm=hand_gmm(cfg.right_hand_prior_type),
         coll_stage_mask=coll_stage_mask, get_model=get_model, device=dev,
         collision_fn=collision_fn,

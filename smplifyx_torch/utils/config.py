@@ -2,10 +2,11 @@
 
 The port's own copy of the JAX package's `utils/config.py` (field names,
 defaults and profile resolution are identical, so every preset in cfg/
-loads into the same values).  `parse_cli` and `save_config` wait for the
-port's CLI.
-The `platform` field is accepted so presets still load; the port ignores
-it (entry points take `device=` instead).
+loads into the same values), with `save_config` and `parse_cli` (the same
+flag typing).  `platform` picks the device, as in the JAX package: None,
+"gpu" or "cuda" run on the card, "cpu" on the CPU, anything else raises
+(`utils/device.py::device_for_platform`); an entry point's `device=`
+overrides it.
 
 Replaces the reference's configargparse setup (smplifyx/cmd_parser.py:27-317,
 ~70 flags with YAML config files).  Field names and semantics match the
@@ -17,10 +18,12 @@ implied by the weight-list lengths, jaw weights are comma-separated
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os.path as osp
+import warnings
 from dataclasses import dataclass, field
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Sequence
 
 import yaml
 
@@ -85,7 +88,7 @@ class Config:
     point2plane: bool = False
     ign_part_pairs: List[str] = field(default_factory=list)
 
-    platform: Optional[str] = None   # accepted so presets load; unused
+    platform: Optional[str] = None   # None | "gpu" | "cuda" -> card; "cpu"
 
     focal_length: Optional[float] = None
     camera_type: str = "persp"
@@ -232,8 +235,48 @@ def load_config(path: Optional[str] = None, **overrides) -> Config:
         values = {k: v for k, v in raw.items() if k in known}
         unknown = set(raw) - known
         if unknown:
-            import warnings
-
             warnings.warn(f"ignoring unknown config keys: {sorted(unknown)}")
     values.update(overrides)
     return Config(**values).validate()
+
+
+def save_config(cfg: Config, path: str) -> None:
+    """Dump the resolved config (reference conf.yaml dump, main.py:59-61)."""
+    with open(path, "w") as f:
+        yaml.safe_dump(dataclasses.asdict(cfg), f)
+
+
+def parse_cli(argv: Optional[Sequence[str]] = None) -> Config:
+    """--config preset.yaml plus --key value overrides for every field."""
+    parser = argparse.ArgumentParser(
+        prog="smplifyx-torch",
+        description="Batched SMPLify-X fitting on a CUDA card (PyTorch)")
+    parser.add_argument("-c", "--config", required=False, default=None,
+                        help="YAML config preset")
+    known = {f.name: f for f in dataclasses.fields(Config)}
+    for name, fld in known.items():
+        parser.add_argument(f"--{name}", default=None,
+                            nargs="*" if "List" in str(fld.type) else None)
+    args = vars(parser.parse_args(argv))
+    config_path = args.pop("config")
+
+    overrides = {}
+    for k, v in args.items():
+        if v is None:
+            continue
+        t = str(known[k].type)
+        if "List[float]" in t:
+            overrides[k] = [float(x) for x in v]
+        elif "List[int]" in t:
+            overrides[k] = [int(x) for x in v]
+        elif "List" in t:
+            overrides[k] = list(v)
+        elif "bool" in t:
+            overrides[k] = str(v).lower() in ("1", "true", "yes")
+        elif "int" in t:
+            overrides[k] = int(v)
+        elif "float" in t:
+            overrides[k] = float(v)
+        else:
+            overrides[k] = v
+    return load_config(config_path, **overrides)

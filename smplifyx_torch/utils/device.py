@@ -14,9 +14,22 @@ def resolve_device(device="cuda") -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
+            "no CUDA device is available; pass device='cpu' (--platform cpu "
+            "on the command line) to run on the CPU"
         )
     return dev
+
+
+def device_for_platform(platform) -> str:
+    """The device a config's `platform` names: None, "gpu" or "cuda" the
+    card, "cpu" the CPU.  Any other value ("tpu" included) raises."""
+    key = None if platform is None else str(platform).lower()
+    if key in (None, "gpu", "cuda"):
+        return "cuda"
+    if key == "cpu":
+        return "cpu"
+    raise ValueError(f"platform={platform!r}: the port runs on 'gpu' (or "
+                     "'cuda', the default) or 'cpu'")
 
 
 def full_f32_matmuls() -> None:

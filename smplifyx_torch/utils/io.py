@@ -1,0 +1,182 @@
+"""Result and mesh IO: PLY read/write, result pickles, OBJ export.
+
+The port's copy of `smplifyx_tpu/utils/io.py`: the files it writes are the
+JAX package's, so either package's readers (and the JAX package's viewer
+and warm start) read them.  A pickle holds numpy arrays and Python
+numbers, never a tensor.  Parity targets:
+  * vertices.ply output (reference fit_single_frame.py:671-677, written with
+    plyfile as little-endian binary);
+  * result pickle of all camera + model parameters for the winning
+    orientation (fit_single_frame.py:641-668), reloadable by
+    render_pkl.py-equivalents;
+  * the eval loader's PLY reading (eval.py:46-58).
+
+A dependency-free PLY implementation (binary LE + ascii, vertex x/y/z floats,
+optional faces) keeps the IO path self-contained.
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import Optional
+
+import numpy as np
+
+
+def write_ply(path: str, vertices: np.ndarray, faces: Optional[np.ndarray] = None,
+              binary: bool = True) -> None:
+    """Write vertices [V,3] float32 (and optional faces [F,3] int) as PLY."""
+    vertices = np.asarray(vertices, np.float32)
+    V = len(vertices)
+    header = ["ply",
+              "format binary_little_endian 1.0" if binary else "format ascii 1.0",
+              f"element vertex {V}",
+              "property float x", "property float y", "property float z"]
+    if faces is not None:
+        faces = np.asarray(faces, np.int32)
+        header += [f"element face {len(faces)}",
+                   "property list uchar int vertex_indices"]
+    header.append("end_header")
+
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        if binary:
+            f.write(vertices.astype("<f4").tobytes())
+            if faces is not None:
+                rec = np.empty(len(faces), dtype=[("n", "u1"), ("v", "<i4", (3,))])
+                rec["n"] = 3
+                rec["v"] = faces
+                f.write(rec.tobytes())
+        else:
+            for v in vertices:
+                f.write(f"{v[0]} {v[1]} {v[2]}\n".encode("ascii"))
+            if faces is not None:
+                for fc in faces:
+                    f.write(f"3 {fc[0]} {fc[1]} {fc[2]}\n".encode("ascii"))
+
+
+def read_ply(path: str) -> tuple[np.ndarray, Optional[np.ndarray]]:
+    """Read a PLY (ascii or binary LE) -> (vertices [V,3] f32, faces or None).
+
+    Handles extra per-vertex properties (normals, colors) by reading the
+    full property list and extracting x/y/z.
+    """
+    with open(path, "rb") as f:
+        # --- header
+        lines = []
+        while True:
+            line = f.readline().decode("ascii", errors="replace").strip()
+            lines.append(line)
+            if line == "end_header":
+                break
+        fmt = next(l.split()[1] for l in lines if l.startswith("format"))
+        binary = fmt.startswith("binary_little")
+
+        elements = []  # (name, count, [(type, name)...])
+        cur = None
+        for l in lines:
+            parts = l.split()
+            if not parts:
+                continue
+            if parts[0] == "element":
+                cur = {"name": parts[1], "count": int(parts[2]), "props": []}
+                elements.append(cur)
+            elif parts[0] == "property" and cur is not None:
+                if parts[1] == "list":
+                    cur["props"].append(("list", parts[2], parts[3], parts[4]))
+                else:
+                    cur["props"].append((parts[1], parts[2]))
+
+        type_map = {"float": "<f4", "float32": "<f4", "double": "<f8",
+                    "float64": "<f8", "uchar": "u1", "uint8": "u1",
+                    "char": "i1", "int8": "i1", "short": "<i2", "ushort": "<u2",
+                    "int": "<i4", "int32": "<i4", "uint": "<u4",
+                    "uint32": "<u4"}
+
+        vertices, faces = None, None
+        for el in elements:
+            if el["name"] == "vertex":
+                dtype = np.dtype([(p[1], type_map[p[0]]) for p in el["props"]])
+                if binary:
+                    data = np.frombuffer(f.read(dtype.itemsize * el["count"]),
+                                         dtype=dtype)
+                else:
+                    rows = [f.readline().split() for _ in range(el["count"])]
+                    data = np.array(
+                        [tuple(r[: len(dtype)]) for r in rows], dtype=dtype
+                    )
+                vertices = np.stack(
+                    [data["x"], data["y"], data["z"]], axis=-1
+                ).astype(np.float32)
+            elif el["name"] == "face":
+                if binary:
+                    out = []
+                    count_t = type_map[el["props"][0][1]]
+                    idx_t = type_map[el["props"][0][2]]
+                    count_size = np.dtype(count_t).itemsize
+                    idx_size = np.dtype(idx_t).itemsize
+                    for _ in range(el["count"]):
+                        n = int(np.frombuffer(f.read(count_size), count_t)[0])
+                        out.append(np.frombuffer(f.read(idx_size * n), idx_t))
+                    faces = np.stack(out).astype(np.int32)
+                else:
+                    rows = [f.readline().split() for _ in range(el["count"])]
+                    faces = np.array([r[1:4] for r in rows], np.int32)
+        return vertices, faces
+
+
+def write_obj(path: str, vertices: np.ndarray, faces: np.ndarray) -> None:
+    # One C-level printf per section instead of a Python loop over 30k+
+    # rows: 82 -> 25 ms/frame at full SMPL-X scale (measurable against the
+    # ~8 ms/frame fit cost when saving batched results).
+    v = np.asarray(vertices, np.float64)
+    fc = np.asarray(faces, np.int64) + 1  # OBJ is 1-indexed
+    with open(path, "w") as f:
+        f.write(("v %.8g %.8g %.8g\n" * len(v)) % tuple(v.ravel()))
+        f.write(("f %d %d %d\n" * len(fc)) % tuple(fc.ravel()))
+
+
+def save_result_pickle(
+    path: str,
+    camera_translation: np.ndarray,
+    camera_center: np.ndarray,
+    focal_length: float,
+    H: int,
+    W: int,
+    params: dict,
+    body_pose: np.ndarray,
+    loss: float | None = None,
+    stages: list[dict] | None = None,
+) -> None:
+    """Persist the fit result in the reference's pickle schema
+    (fit_single_frame.py:644-668): camera_* entries, image metadata, every
+    model parameter, and the decoded body_pose.
+
+    stages: optional per-stage parameter snapshots (same keys as `params`
+    plus camera_translation/body_pose), stored under an ADDITIVE "stages"
+    key — the during-fit trajectory the reference shows live in its
+    MeshViewer (mesh_viewer.py:82-97); viz/viewer.py --stages scrubs it."""
+    result = {
+        "camera_rotation": np.eye(3, dtype=np.float32)[None],
+        "camera_translation": np.asarray(camera_translation, np.float32).reshape(1, 3),
+        "camera_center": np.asarray(camera_center, np.float32).reshape(1, 2),
+        "H": H, "W": W, "focal_length": focal_length,
+        "body_pose": np.asarray(body_pose, np.float32).reshape(1, -1),
+    }
+    if loss is not None:
+        result["loss"] = float(loss)
+    if stages is not None:
+        result["stages"] = [
+            {k: np.asarray(v, np.float32) for k, v in st.items()}
+            for st in stages
+        ]
+    for key, val in params.items():
+        result[key] = np.asarray(val, np.float32)[None] if np.ndim(val) == 1 \
+            else np.asarray(val, np.float32)
+    with open(path, "wb") as f:
+        pickle.dump(result, f, protocol=2)
+
+
+def load_result_pickle(path: str) -> dict:
+    with open(path, "rb") as f:
+        return pickle.load(f, encoding="latin1")

@@ -1,0 +1,259 @@
+"""Port parity for the app path against the JAX package, on the CPU.
+
+Both packages' `app.run` read one generated data folder (`problem.
+write_app_inputs`: V=96, two frames) and write their results; names, file
+trees, pickle keys and shapes must match and every frame's final loss must
+agree within 5% (whole fits agree at loss level, not trajectory level).
+Collision off on a synthetic model for three presets, as tests/test_app.py
+runs them, and collision on with the folder's own model (`slice_model(96)`,
+read from its .npz by both packages)."""
+
+import dataclasses
+import json
+import os
+import shutil
+
+import numpy as np
+import jax
+import pytest
+import torch
+
+from smplifyx_tpu.app import run as j_run
+from smplifyx_tpu.data import regressors as jregressors
+from smplifyx_tpu.data.keypoints import create_dataset as j_create_dataset
+from smplifyx_tpu.fitting.prepare import prepare_batch as j_prepare_batch
+from smplifyx_tpu.models.bodymodel import synthetic_model as j_synthetic_model
+from smplifyx_tpu.models.sparse import build_joints_model as j_joints_model
+from smplifyx_tpu.session import build_fit_session as j_build_fit_session
+from smplifyx_tpu.utils.config import load_config as j_load_config
+from smplifyx_tpu.utils.config import parse_cli as j_parse_cli
+from smplifyx_tpu.utils.config import save_config as j_save_config
+from smplifyx_tpu.utils.io import load_result_pickle as j_load_result_pickle
+
+from smplifyx_torch import cli, convert
+from smplifyx_torch.app import regression_priors, run
+from smplifyx_torch.data.keypoints import create_dataset
+from smplifyx_torch.fitting.prepare import prepare_batch
+from smplifyx_torch.models.sparse import build_joints_model
+from smplifyx_torch.problem import SLICE_PRESET, write_app_inputs
+from smplifyx_torch.session import build_fit_session
+from smplifyx_torch.utils.config import load_config, parse_cli, save_config
+from smplifyx_torch.utils.io import read_ply
+
+PRESETS = {name: os.path.join(os.path.dirname(SLICE_PRESET),
+                              f"fit_smplx_{name}.yaml")
+           for name in ("combined_coco25", "combined_vposer_coco25",
+                        "smplifyx", "combined_halpe")}
+V, FRAMES, ITERS = 96, 2, 2
+LOSS_RTOL = 0.05
+
+
+@pytest.fixture(scope="module")
+def folder(tmp_path_factory):
+    root = tmp_path_factory.mktemp("app")
+    return write_app_inputs(str(root), batch=FRAMES, num_verts=V)
+
+
+@pytest.fixture(scope="module")
+def models():
+    """A synthetic model in both packages (the JAX one converted)."""
+    jm = j_synthetic_model(num_verts=V, seed=1)
+    fields = {f.name: (np.asarray(getattr(jm, f.name))
+                       if hasattr(getattr(jm, f.name), "shape")
+                       else getattr(jm, f.name))
+              for f in dataclasses.fields(jm)}
+    return jm, convert.smplx_model(fields, "cpu")
+
+
+def _tree(out):
+    return sorted(os.path.relpath(os.path.join(d, f), out)
+                  for d, _, files in os.walk(out) for f in files)
+
+
+def _configs(preset, out, **overrides):
+    kw = dict(maxiters=ITERS, interactive=False, **overrides)
+    return (j_load_config(PRESETS[preset], output_folder=out + "_jax", **kw),
+            load_config(PRESETS[preset], output_folder=out + "_torch", **kw))
+
+
+def _run_both(preset, out, models=None, **overrides):
+    """One config, both packages: (JAX result, port result, output dirs)."""
+    jcfg, tcfg = _configs(preset, out, **overrides)
+    jres = j_run(jcfg, model=None if models is None else models[0])
+    tres = run(tcfg, model=None if models is None else models[1], device="cpu")
+    return jres, tres, (jcfg.output_folder, tcfg.output_folder)
+
+
+def _held_to_jax(jres, tres, outs):
+    assert tres.names == jres.names
+    assert _tree(outs[1]) == _tree(outs[0])
+    assert np.isfinite(tres.losses).all()
+    rel = np.abs(tres.losses - np.asarray(jres.losses)) / np.abs(jres.losses)
+    assert (rel <= LOSS_RTOL).all(), rel
+    for tf, jf in zip(tres.result_files, jres.result_files):
+        got, want = j_load_result_pickle(tf), j_load_result_pickle(jf)
+        assert sorted(got) == sorted(want)
+        for key, value in want.items():
+            assert not isinstance(got[key], torch.Tensor), key
+            assert np.shape(got[key]) == np.shape(value), key
+        assert (got["H"], got["W"], got["focal_length"]) == \
+            (want["H"], want["W"], want["focal_length"])
+        verts, _ = read_ply(os.path.join(os.path.dirname(tf), "vertices.ply"))
+        assert np.isfinite(verts).all()
+    assert tres.stats["num_frames"] == len(tres.names)
+    assert set(tres.spans) == {"setup", "read", "prepare", "fit", "recover",
+                               "write"}
+
+
+@pytest.mark.parametrize("preset", ["combined_coco25", "combined_vposer_coco25",
+                                    "smplifyx"])
+def test_app_matches_jax_collision_off(folder, models, tmp_path, preset):
+    _held_to_jax(*_run_both(preset, str(tmp_path / "out"), models,
+                            **folder.overrides, interpenetration=False))
+
+
+def test_app_matches_jax_collision_on(folder, tmp_path):
+    """The chip path at V=96: the VPoser combined preset, collision on, the
+    model and part segmentation read from the folder by both packages."""
+    _held_to_jax(*_run_both("combined_vposer_coco25", str(tmp_path / "out"),
+                            **folder.overrides))
+
+
+def test_resume_from_matches_jax(folder, models, tmp_path):
+    """A run warm-started from a previous run's result pickles."""
+    over = dict(folder.overrides, interpenetration=False)
+    first = _configs("combined_coco25", str(tmp_path / "first"), **over)[0]
+    j_run(first, model=models[0])
+    results = os.path.join(first.output_folder, "results")
+    jres, tres, outs = _run_both("combined_coco25", str(tmp_path / "again"),
+                                 models, resume_from=results, **over)
+    _held_to_jax(jres, tres, outs)
+
+
+def test_mixed_gender_groups_match_jax(models, tmp_path):
+    """Frames annotated with different genders fit as separate groups, in
+    the JAX package's order."""
+    inputs = write_app_inputs(str(tmp_path / "data"), batch=4, num_verts=V,
+                              genders=["male", "female", "female", "male"])
+    jres, tres, outs = _run_both("combined_coco25", str(tmp_path / "out"),
+                                 models, **inputs.overrides,
+                                 interpenetration=False)
+    assert tres.names == ["frame_0001", "frame_0002", "frame_0000", "frame_0003"]
+    _held_to_jax(jres, tres, outs)
+
+
+ARGV = ["--maxiters", "3", "--use_hands", "false", "--init_joints_idxs", "1",
+        "2", "--degrees", "0", "90.5", "--gender", "male",
+        "--focal_length", "1234.5", "--resume_from", "somewhere",
+        "--ls_mode", "wolfe", "--ign_part_pairs", "1,2", "3,4"]
+
+
+def test_parse_cli_and_save_config_match_jax(tmp_path):
+    for argv in (["--config", PRESETS["combined_coco25"], *ARGV], ARGV, []):
+        got, want = parse_cli(argv), j_parse_cli(argv)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    path, jpath = tmp_path / "conf.yaml", tmp_path / "jconf.yaml"
+    save_config(got, str(path))
+    j_save_config(want, str(jpath))
+    assert path.read_text() == jpath.read_text()
+    assert dataclasses.asdict(j_load_config(str(path))) == dataclasses.asdict(got)
+    assert dataclasses.asdict(load_config(str(jpath))) == dataclasses.asdict(got)
+
+
+def _halpe_folder(src, dst):
+    """The folder with a 26th body keypoint in every JSON (Halpe-26)."""
+    shutil.copytree(src, dst)
+    keyp = os.path.join(dst, "keypoints")
+    for name in os.listdir(keyp):
+        path = os.path.join(keyp, name)
+        with open(path) as f:
+            doc = json.load(f)
+        for person in doc["people"]:
+            person["pose_keypoints_2d"] += person["pose_keypoints_2d"][-3:]
+        with open(path, "w") as f:
+            json.dump(doc, f)
+    return dst
+
+
+@pytest.mark.parametrize("preset", list(PRESETS))
+def test_cli_runs_every_preset_on_the_cpu(folder, tmp_path, preset):
+    """`python -m smplifyx_torch.cli --config <preset> ... --platform cpu`
+    writes conf.yaml and, per frame, 000.pkl, 000.obj and vertices.ply."""
+    data = folder.overrides["data_folder"]
+    if preset == "combined_halpe":
+        data = _halpe_folder(data, str(tmp_path / "halpe"))
+    out = tmp_path / "out"
+    flags = [f"--{k}={v}" for k, v in folder.overrides.items()
+             if k != "data_folder"]
+    cli.main(["--config", PRESETS[preset], *flags, "--data_folder", data,
+              "--output_folder", str(out), "--platform", "cpu",
+              "--maxiters", "1", "--interactive", "false"])
+    assert (out / "conf.yaml").exists()
+    assert load_config(str(out / "conf.yaml")).platform == "cpu"
+    for name in folder.names:
+        for path in (out / "results" / name / "000.pkl",
+                     out / "results" / name / "vertices.ply",
+                     out / "meshes" / name / "000.obj"):
+            assert path.exists(), path
+
+
+def test_entry_points_run_on_the_card_unless_asked(folder, tmp_path,
+                                                   monkeypatch):
+    """Without a card, the default (and "gpu", "cuda") raises before the
+    output folder is touched; "tpu" is no platform of the port."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out"
+    out.mkdir()
+    (out / "keep").write_text("x")
+    for platform in (None, "gpu", "cuda"):
+        cfg = load_config(PRESETS["combined_coco25"], **folder.overrides,
+                          output_folder=str(out), platform=platform)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--config", PRESETS["combined_coco25"],
+                  "--output_folder", str(out)])
+    with pytest.raises(ValueError, match="platform"):
+        run(load_config(PRESETS["combined_coco25"], platform="tpu",
+                        output_folder=str(out)))
+    assert (out / "keep").exists()
+    cfg = load_config(PRESETS["combined_coco25"], **folder.overrides,
+                      visualize=True, output_folder=str(out))
+    with pytest.raises(NotImplementedError, match="viz"):
+        run(cfg, device="cpu")
+
+
+def test_fit_stages_matches_jax(folder, models):
+    """FitSession.fit_stages of both packages at loss level, stage by stage;
+    the body stages after the head skip the camera stage."""
+    over = dict(folder.overrides, interpenetration=False, maxiters=ITERS,
+                interactive=False)
+    jcfg = j_load_config(PRESETS["combined_coco25"], **over)
+    tcfg = load_config(PRESETS["combined_coco25"], **over)
+    jsess = j_build_fit_session(jcfg, model=models[0])
+    tsess = build_fit_session(tcfg, model=models[1], device="cpu")
+    ds = dict(format=tcfg.format, data_folder=tcfg.data_folder,
+              use_face_contour=True, joints_to_ign=tcfg.joints_to_ign)
+    jrecs = list(j_create_dataset(use_native_parser=False, **ds))
+    jreg = [jregressors.build_regression_prior(
+        "combined", 1000.0,
+        expose=jregressors.load_expose(jcfg.expose_results_directory, r.fn),
+        pixie=jregressors.load_pixie(jcfg.pixie_results_directory, r.fn))
+        for r in jrecs]
+    jbatch = j_prepare_batch(jcfg, jrecs, jsess.joint_weights(), regression=jreg)
+    trecs = list(create_dataset(**ds))
+    np.testing.assert_array_equal(tsess.joint_weights(), jsess.joint_weights())
+    tbatch = prepare_batch(tcfg, trecs, tsess.joint_weights(),
+                           regression=regression_priors(tcfg, trecs),
+                           device="cpu")
+    want = list(jsess.fit_stages(models[0], j_joints_model(models[0]),
+                                 jbatch.frames, jax.numpy.asarray(jbatch.x0)))
+    got = list(tsess.fit_stages(models[1], build_joints_model(models[1]),
+                                tbatch.frames, tbatch.x0))
+    assert [k for k, _ in got] == [k for k, _ in want] == [0, 1, 2]
+    for (_, t), (_, j) in zip(got, want):
+        jl = np.asarray(j.loss)
+        assert (np.abs(t.loss.numpy() - jl) / np.abs(jl) <= LOSS_RTOL).all()
+        np.testing.assert_array_equal(t.flipped.numpy(), np.asarray(j.flipped))
+    assert got[0][1].camera_evals.min() > 0
+    assert all(int(r.camera_evals.max()) == 0 for _, r in got[1:])

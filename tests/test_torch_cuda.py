@@ -11,7 +11,9 @@ import torch
 
 from smplifyx_torch.ops import collision as tc
 from smplifyx_torch.ops import gather as tg
+from smplifyx_torch.models import vposer as tv
 from smplifyx_torch.ops import lbs as tlbs
+from smplifyx_torch.utils.device import full_f32_matmuls
 
 pytestmark = pytest.mark.cuda
 
@@ -261,3 +263,28 @@ def test_collision_broad_phase_equal_on_card_and_cpu(card):
     torch.cuda.synchronize()
     scale = max(1.0, vp.grad.abs().max().item())
     assert (vg.grad - vp.grad).abs().max().item() <= 1e-5 * scale
+
+
+def test_vposer_decode_on_card_matches_cpu(card):
+    """VPoser's decode and its gradient in z on the card (cuBLAS, TF32 off
+    as in the fit) against the same network on the CPU, at random z and at
+    z = 0, over the doubled batch of the main path."""
+    full_f32_matmuls()
+    sd = tv.random_params(0)
+    nets = (tv.vposer_from_state_dict(sd, device="cpu"),
+            tv.vposer_from_state_dict(sd, device=card))
+    gen = torch.Generator().manual_seed(0)
+    for z in (torch.randn(256, tv.LATENT_DIM, generator=gen),
+              torch.zeros(256, tv.LATENT_DIM)):
+        w = torch.randn(256, tv.POSE_DIM, generator=gen)
+        res = []
+        for net, dev in zip(nets, ("cpu", card)):
+            zz = z.detach().to(dev).requires_grad_(True)
+            out = net.decode(zz)
+            (torch.sin(out) * w.to(dev)).sum().backward()
+            res.append((out.detach().cpu(), zz.grad.cpu()))
+        (out_cpu, g_cpu), (out_card, g_card) = res
+        assert torch.isfinite(out_card).all() and torch.isfinite(g_card).all()
+        assert (out_card - out_cpu).abs().max().item() <= 1e-5
+        scale = max(1.0, g_cpu.abs().max().item())
+        assert (g_card - g_cpu).abs().max().item() <= 1e-4 * scale

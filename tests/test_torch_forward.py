@@ -211,5 +211,18 @@ def test_load_body_model_npz_matches(tmp_path):
         else:
             assert tuple(a) == tuple(ref[f.name]) if isinstance(a, tuple) \
                 else a == ref[f.name], f.name
-    with pytest.raises(NotImplementedError, match="pkl"):
-        tbody.load_body_model(str(tmp_path / "SMPLX_NEUTRAL.pkl"), device="cpu")
+    # The same arrays as a legacy .pkl (J_regressor scipy-sparse) load alike.
+    import pickle
+
+    import scipy.sparse as sp
+
+    raw = dict(np.load(path))
+    raw["J_regressor"] = sp.csc_matrix(raw["J_regressor"])
+    pkl = tmp_path / "SMPLX_NEUTRAL.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump(raw, f)
+    from_pkl = tbody.load_body_model(str(pkl), device="cpu")
+    for f in dataclasses.fields(got):
+        a = getattr(got, f.name)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(getattr(from_pkl, f.name), a), f.name
