@@ -28,6 +28,17 @@ and PIXIE results), run twice (the second timed, with its `Timer` spans),
 its loaded model and prepared keypoints held equal to the in-memory ones,
 and 4 of its frames refitted on the CPU through `app.run`.
 
+After each of the three paths the `quality` phase holds the fit's meshes
+against the problem's ground truth through `evaluation/metrics.py` on the
+card (PA-V2V in mm over all vertices and per part of
+`synthetic_part_vertex_ids`, PA-MPJPE over the skeleton joints) and
+requires the same numbers from the CPU on the same arrays.  Last, the
+`viz` phase runs the command line with `--visualize true` on 8 frames
+(overlays per stage, the VPoser pose grid, the pickles' "stages"), fits
+the same batch stage by stage through `viz/live.py::stream_fit`, and asks
+the live viewer (`viz/viewer.py::serve_live_viewer`, on a thread on
+127.0.0.1) for its page and its /version.
+
 Each path's kernel launch counts are set to 0 just before its timed fit
 and read just after (K1's split into full-mesh and landmark-subset
 launches); the two fits of each path must end bit-equal, neither may
@@ -79,6 +90,15 @@ SAME_X_GRAD_TOL = 1e-2
 
 APP_FRAMES = 128    # frames of the app path (one gender group, B=128)
 APP_CPU_FRAMES = 4  # of them refitted on the CPU; median loss within 5%
+# PA-V2V and PA-MPJPE in mm of the same arrays through evaluation/metrics.py
+# on the card and on the CPU: f32 sums over V=10475 in another order move
+# them by ~1e-5 mm.
+QUALITY_TOL_MM = 1e-3
+VIZ_FRAMES = 8      # frames of the viz path: the host rasteriser draws
+                    # (S + 2) images per frame
+# A pickle's last "stages" entry against its final parameters: the same x,
+# with VPoser decoding another batch.
+STAGE_PARAM_TOL = 1e-6
 
 # Data-sheet peaks (dense, no sparsity): FP32 on the CUDA cores, memory rate.
 PEAKS = {  # name fragment -> (FP32 FLOP/s, bytes/s)
@@ -801,7 +821,7 @@ def phase_lane_reference(label, card_session, card_model, res, frames, x0,
     through the plain versions on the CPU; their final losses against the
     card's, with the bounds set out at `LANE_SAMPLE`.  The stage-2 energy
     and gradient of both devices at the card's final x of those lanes must
-    agree to rounding."""
+    agree to rounding.  Returns the CPU fit, its session and model."""
     from smplifyx_torch.models.sparse import build_joints_model
     from smplifyx_torch.problem import slice_session
 
@@ -840,12 +860,14 @@ def phase_lane_reference(label, card_session, card_model, res, frames, x0,
     if not (f_rel <= SAME_X_VALUE_RTOL and g_err <= SAME_X_GRAD_TOL):
         raise AssertionError(f"card and CPU energies at the same x differ: "
                              f"value {f_rel:.3g}, gradient {g_err:.3g}")
+    return cpu, session, model
 
 
 class FitCounter:
     """Counts, over every `FitSession.fit` inside the block, the skinning
     plans (`lbs_plan.builds`) and row plans built while the fit ran, and
-    keeps the camera stage's largest evaluation count."""
+    keeps the camera stage's largest evaluation count and (in `results`)
+    every FitResult."""
 
     def __enter__(self):
         from smplifyx_torch.ops.gather import row_plan
@@ -854,11 +876,13 @@ class FitCounter:
 
         self.counts = {"fits": 0, "lbs_plan": 0, "row_plan": 0,
                        "camera_evals_max": 0}
+        self.results = []
         self._fit = fit = FitSession.fit
 
         def counted(session, *args):
             before = lbs_plan.builds, row_plan.builds
             res = fit(session, *args)
+            self.results.append(res)
             self.counts["fits"] += 1
             self.counts["lbs_plan"] += lbs_plan.builds - before[0]
             self.counts["row_plan"] += row_plan.builds - before[1]
@@ -886,7 +910,8 @@ def phase_app():
     """The command line on the card: the VPoser combined preset, collision
     on, B=128, V=10475, from files.  Run twice (the first warms up); the
     launch counts are set to 0 just before the second run and read just
-    after.  Returns the second run's launches."""
+    after.  Returns the second run's launches and (model, settings, x,
+    losses) of its written results."""
     import tempfile
     import types
 
@@ -971,9 +996,9 @@ def phase_app():
         model = session.get_model("neutral")
         view = types.SimpleNamespace(settings=plain, decode_body=lambda b: b,
                                      joint_map=session.joint_map)
-        reproj, _ = reprojection_px(view, model, batch.frames,
-                                    torch.as_tensor(x, device="cuda"))
-        del session, model, batch
+        fitted = torch.as_tensor(x, device="cuda")
+        reproj, _ = reprojection_px(view, model, batch.frames, fitted)
+        del session, batch
 
         # A few frames again on the CPU, through the same entry point.
         t0 = time.perf_counter()
@@ -1031,6 +1056,266 @@ def phase_app():
     if not median_rel <= LANE_LOSS_RTOL:
         raise AssertionError(f"the CPU's median final loss differs from the "
                              f"card's by {median_rel:.3g} > {LANE_LOSS_RTOL}")
+    return launches, (model, plain, fitted, result.losses)
+
+
+def _quantiles(t):
+    t = t.detach().float().cpu()
+    return {"median": float(t.median()), "mean": float(t.mean()),
+            "worst": float(t.max()), "worst_lane": int(t.argmax())}
+
+
+def _spearman(a, b):
+    """Rank correlation of two per-lane vectors (no ties expected)."""
+    ra = a.argsort().argsort().double()
+    rb = b.argsort().argsort().double()
+    ra, rb = ra - ra.mean(), rb - rb.mean()
+    return float((ra * rb).sum() / (ra.norm() * rb.norm()))
+
+
+def phase_quality(label, model, settings, decode_body, x, losses,
+                  lane_ref=None):
+    """The fit's recovered meshes against the problem's ground truth, in
+    mm, through evaluation/metrics.py on the card: PA-V2V over all
+    vertices (median, mean, worst lane), per part of
+    `synthetic_part_vertex_ids`, and PA-MPJPE over the skeleton joints.
+    The same function on the CPU, on the same arrays, must agree within
+    QUALITY_TOL_MM.  With `lane_ref` (the CPU refit of the first lanes,
+    its session and model), the PA-V2V of those lanes on both devices
+    beside their final losses."""
+    import torch
+
+    from smplifyx_torch.evaluation.ehf import synthetic_part_vertex_ids
+    from smplifyx_torch.problem import (fit_meshes, ground_truth_meshes,
+                                        lane_errors_mm)
+
+    B, V = x.shape[0], model.num_verts
+    parts = synthetic_part_vertex_ids(V)
+    fit_v, fit_j = fit_meshes(model, settings, decode_body, x)
+    gt_v, gt_j = ground_truth_meshes(model, B)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = lane_errors_mm(fit_v, gt_v, fit_j, gt_j, parts)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    arrays = [a.cpu() for a in (fit_v, gt_v, fit_j, gt_j)]
+    cpu = lane_errors_mm(*arrays, parts)
+    diff = {k: float((card[k].cpu() - cpu[k]).abs().max()) for k in card}
+    losses = torch.as_tensor(losses).float().cpu()
+    row = {"phase": "quality", "path": label,
+           "card": torch.cuda.get_device_name(0), "B": B, "V": V,
+           "pa_v2v_mm": _quantiles(card["pa_v2v"]),
+           "pa_v2v_parts_mm": {k[len("pa_v2v_"):]: _quantiles(v)
+                               for k, v in card.items()
+                               if k.startswith("pa_v2v_")},
+           "pa_mpjpe_mm": _quantiles(card["pa_mpjpe"]),
+           "loss_pa_v2v_spearman": _spearman(losses, card["pa_v2v"].cpu()),
+           "card_cpu_max_abs_diff_mm": diff, "bound_mm": QUALITY_TOL_MM,
+           "card_metric_s": card_s}
+    if lane_ref is not None:
+        cpu_res, cpu_session, cpu_model = lane_ref
+        n = cpu_res.x.shape[0]
+        ref_v, ref_j = fit_meshes(cpu_model, cpu_session.settings,
+                                  cpu_session.decode_body, cpu_res.x)
+        ref = lane_errors_mm(ref_v, arrays[1][:n], ref_j, arrays[3][:n],
+                             parts)["pa_v2v"]
+        rel = (losses[:n] - cpu_res.loss).abs() / cpu_res.loss.abs()
+        row["lanes_refitted_on_cpu"] = {
+            "loss_rel_diff": rel.tolist(),
+            "pa_v2v_card_mm": card["pa_v2v"][:n].cpu().tolist(),
+            "pa_v2v_cpu_mm": ref.tolist()}
+    emit(row)
+    if not all(bool(torch.isfinite(v).all()) for v in card.values()):
+        raise AssertionError(f"the {label} errors are not finite")
+    if not max(diff.values()) <= QUALITY_TOL_MM:
+        raise AssertionError(f"the {label} errors on the card and the CPU "
+                             f"differ by {diff} mm > {QUALITY_TOL_MM}")
+    return row
+
+
+def _http_get(port, path):
+    """GET from the local viewer server (no proxy: a direct connection)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        if resp.status != 200:
+            raise AssertionError(f"GET {path} answered {resp.status}")
+        return body
+    finally:
+        conn.close()
+
+
+def phase_viz():
+    """The command line with `--visualize true` on the card: the VPoser
+    combined preset, collision on, V=10475, on VIZ_FRAMES frames of
+    `write_app_inputs`.  Launch counts are set to 0 just before that run
+    and read just after.  Every frame must get output.png, one
+    stage_XX.png per body stage and pose_grid.png, each with mesh pixels;
+    the fit's last snapshot must be its result to the bit; every pickle's
+    "stages" has one entry per body stage, the last within
+    STAGE_PARAM_TOL of its final parameters; the final losses must equal a
+    run with visualize off to the bit.  Then `stream_fit` over the same
+    batch (one fit per stage) and the live viewer on a thread: GET / with
+    (S + 1) meshes per frame built on the card, and /version changing
+    after a pickle is rewritten.  Returns the visualize run's launches."""
+    import json as _json
+    import pickle
+    import re
+    import tempfile
+    import threading
+
+    import torch
+    from PIL import Image
+
+    from smplifyx_torch import cli
+    from smplifyx_torch.app import regression_priors
+    from smplifyx_torch.data.keypoints import create_dataset
+    from smplifyx_torch.fitting.prepare import prepare_batch
+    from smplifyx_torch.models.sparse import build_joints_model
+    from smplifyx_torch.problem import APP_PRESET, SLICE_VERTS, write_app_inputs
+    from smplifyx_torch.session import build_fit_session
+    from smplifyx_torch.utils.config import parse_cli
+    from smplifyx_torch.utils.io import PARAM_KEYS, load_result_pickle
+    from smplifyx_torch.viz.live import stream_fit
+    from smplifyx_torch.viz.viewer import serve_live_viewer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = write_app_inputs(tmp, VIZ_FRAMES)
+        argv = ["--config", APP_PRESET,
+                *[f"--{k}={v}" for k, v in inputs.overrides.items()]]
+        vis_out = os.path.join(tmp, "vis")
+        counter = FitCounter()
+        reset_counts()
+        with counter:
+            t0 = time.perf_counter()
+            result = cli.main(argv + ["--output_folder", vis_out,
+                                      "--visualize", "true"])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        launches = read_counts()
+        fit = counter.results[0]
+        plain = cli.main(argv + ["--output_folder", os.path.join(tmp, "plain")])
+        cfg = parse_cli(argv + ["--output_folder", os.path.join(tmp, "x")])
+        S = len(cfg.body_pose_prior_weights)
+        names = result.names
+
+        images, stage_err = {}, 0.0
+        for name in names:
+            img_dir = os.path.join(vis_out, "images", name)
+            files = ["output.png", "pose_grid.png",
+                     *[f"stage_{s:02d}.png" for s in range(S)]]
+            for f in files:
+                path = os.path.join(img_dir, f)
+                pixels = (np.asarray(Image.open(path))
+                          if os.path.exists(path) else None)
+                # the inputs' images are black; the pose grid is on white
+                background = 255 if f == "pose_grid.png" else 0
+                images[f"{name}/{f}"] = (
+                    0 if pixels is None else int((pixels != background)
+                                                 .any(-1).sum()))
+            d = load_result_pickle(os.path.join(vis_out, "results", name,
+                                                "000.pkl"))
+            if len(d.get("stages", ())) != S:
+                raise AssertionError(f"{name}'s pickle holds "
+                                     f"{len(d.get('stages', ()))} stages")
+            last = d["stages"][-1]
+            want = {"camera_translation": d["camera_translation"],
+                    **{k: d[k] for k in ("body_pose", *PARAM_KEYS)}}
+            for k, v in want.items():
+                stage_err = max(stage_err, float(np.abs(
+                    np.reshape(last[k], -1) - np.reshape(v, -1)).max()))
+        losses_equal = bool(np.array_equal(result.losses, plain.losses))
+        last_is_x = bool(torch.equal(fit.stage_x[-1], fit.x))
+
+        # stream_fit: one fit call per stage, pickles rewritten after each
+        session = build_fit_session(cfg)
+        model = session.get_model(cfg.gender)
+        records = list(create_dataset(
+            format=cfg.format, data_folder=cfg.data_folder,
+            use_hands=cfg.use_hands, use_face=cfg.use_face,
+            use_face_contour=cfg.use_face_contour,
+            joints_to_ign=cfg.joints_to_ign))
+        batch = prepare_batch(cfg, records, session.joint_weights(),
+                              regression=regression_priors(cfg, records),
+                              vposer=session.vposer, device="cuda")
+        live_dir = os.path.join(tmp, "live")
+        t0 = time.perf_counter()
+        dispatches = [stage for stage, _ in stream_fit(
+            session, model, build_joints_model(model), batch, live_dir)]
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+
+        server = serve_live_viewer(live_dir, model)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            port = server.server_address[1]
+            reset_counts()
+            t0 = time.perf_counter()
+            page = _http_get(port, "/")
+            page_s = time.perf_counter() - t0
+            page_launches = read_counts()["lbs"]
+            meshes = _json.loads(re.search(r"const MESHES = (\[.*?\]);\n",
+                                           page).group(1))
+            ver = _json.loads(_http_get(port, "/version"))["ver"]
+            pkl = os.path.join(live_dir, names[0], "000.pkl")
+            d = load_result_pickle(pkl)
+            d["loss"] = 0.0
+            with open(pkl, "wb") as f:
+                pickle.dump(d, f)
+            ver_after = _json.loads(_http_get(port, "/version"))["ver"]
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        if thread.is_alive():
+            raise AssertionError("the live viewer's thread did not stop")
+
+    by_rows = launches["lbs_by_rows"]
+    row = {"phase": "viz", "preset": os.path.basename(APP_PRESET),
+           "card": torch.cuda.get_device_name(0), "B": len(names),
+           "V": SLICE_VERTS, "run_s": run_s, "spans": result.spans,
+           "render_s": result.spans.get("render"),
+           "card_forward_s": result.spans.get("viz_forward"),
+           "launches": launches,
+           "lbs_launches": {"full_mesh": by_rows.get(SLICE_VERTS, 0),
+                            "other": launches["lbs"] - by_rows.get(SLICE_VERTS, 0)},
+           "images_with_mesh_pixels": sum(v > 0 for v in images.values()),
+           "images_expected": len(names) * (S + 2),
+           "mesh_pixels_min": min(images.values()),
+           "stage_x_last_is_x": last_is_x,
+           "stage_param_max_abs_diff": stage_err,
+           "losses_equal_visualize_off": losses_equal,
+           "loss_median": float(np.median(result.losses)),
+           "stream_dispatches": dispatches, "stream_s": stream_s,
+           "live_meshes": len(meshes), "live_page_s": page_s,
+           "live_page_k1_launches": page_launches,
+           "live_version_changed": ver != ver_after}
+    emit(row)
+    if len(images) != len(names) * (S + 2) or min(images.values()) <= 0:
+        raise AssertionError("an image is missing or has no mesh pixels: "
+                             f"{ {k: v for k, v in images.items() if v <= 0} }")
+    if not last_is_x:
+        raise AssertionError("the fit's last stage snapshot is not its result")
+    if not stage_err <= STAGE_PARAM_TOL:
+        raise AssertionError(f"a pickle's last stage differs from its final "
+                             f"parameters by {stage_err}")
+    if not losses_equal:
+        raise AssertionError("visualize changed the final losses")
+    if dispatches != list(range(S)):
+        raise AssertionError(f"stream_fit yielded stages {dispatches}")
+    if len(meshes) != (S + 1) * len(names) or page_launches <= 0:
+        raise AssertionError(f"the live viewer built {len(meshes)} meshes "
+                             f"with {page_launches} K1 launches")
+    if ver == ver_after:
+        raise AssertionError("/version did not change after a rewrite")
+    for name in ("lbs", "gather", "scatter", "scatter_join"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the viz run never launched the {name} kernel")
     return launches
 
 
@@ -1091,7 +1376,10 @@ def main() -> int:
         "collision_on", session, model, jm, frames, x0,
         needs=("lbs", "gather", "scatter", "scatter_join"))
     phase_k3_amortised(scatters, launches["scatter"], plan_builds)
-    phase_lane_reference("collision_on", session, model, res, frames, x0)
+    lane_ref = phase_lane_reference("collision_on", session, model, res,
+                                    frames, x0)
+    phase_quality("collision_on", model, session.settings,
+                  session.decode_body, res.x, res.loss, lane_ref)
 
     # ---- the collision-off path of the first slice
     off = dict(interpenetration=False)
@@ -1099,17 +1387,24 @@ def main() -> int:
     phase_energy(session, model, jm, frames, x0)
     res, _, _ = phase_main_path("collision_off", session, model, jm, frames,
                                 x0, needs=("lbs",))
-    phase_lane_reference("collision_off", session, model, res, frames, x0,
-                         **off)
+    lane_ref = phase_lane_reference("collision_off", session, model, res,
+                                    frames, x0, **off)
+    phase_quality("collision_off", model, session.settings,
+                  session.decode_body, res.x, res.loss, lane_ref)
 
     # ---- the app path: the command line, from files
-    app = phase_app()
+    app, (model, settings, x, losses) = phase_app()
+    phase_quality("app", model, settings, lambda b: b, x, losses)
+
+    # ---- the viz path: --visualize true, overlays, live viewer
+    viz = phase_viz()
 
     for r in lbs_rows:
         r["max_abs_err"] = r["fwd_max_abs_err"]
 
     def by_path(name):
-        return {"app": app[name], "collision_on": launches[name]}
+        return {"app": app[name], "collision_on": launches[name],
+                "viz": viz[name]}
 
     emit({"kernels": [
         kernel_entry("lbs", "smplifyx_torch/csrc/lbs.cu",

@@ -17,9 +17,15 @@ Kept from the reference and the JAX package:
   * each gender group is padded to a power of two (at least
     cfg.batch_size) with copies of its last frame, as the JAX package
     pads to reuse compiled executables; lanes are independent, so the
-    real frames' results do not change.
-
-`visualize: true` raises: the overlays wait for the viz port.
+    real frames' results do not change;
+  * with `visualize`, the fit keeps every body stage's parameters
+    (FitResult.stage_x): each pickle gains them under "stages" (what the
+    viewer scrubs), and images/<name>/ gets output.png (the final mesh over
+    the image), stage_XX.png per body stage (fit_single_frame.py:509-520)
+    and, under VPoser, pose_grid.png (the decoded pose on a neutral body,
+    :263-271).  The meshes come from one forward per stage over the whole
+    group on the card (`viz_forward` span); the host rasteriser draws them
+    (`render` span).
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import numpy as np
 import torch
 
 from smplifyx_torch.data.gender import group_by_gender, load_homogenus
-from smplifyx_torch.data.keypoints import create_dataset
+from smplifyx_torch.data.keypoints import create_dataset, load_image
 from smplifyx_torch.data.regressors import (
     build_regression_prior,
     load_expose,
@@ -48,16 +54,19 @@ from smplifyx_torch.fitting.params import unpack
 from smplifyx_torch.fitting.pipeline import recover_outputs
 from smplifyx_torch.fitting.prepare import pad_prepared, prepare_batch
 from smplifyx_torch.models.sparse import build_joints_model
+from smplifyx_torch.ops.camera import CameraParams
 from smplifyx_torch.session import build_fit_session
 from smplifyx_torch.utils.config import Config, save_config
-from smplifyx_torch.utils.io import save_result_pickle, write_obj, write_ply
+from smplifyx_torch.utils.io import (
+    PARAM_KEYS,
+    save_result_pickle,
+    stage_record,
+    write_obj,
+    write_ply,
+)
 from smplifyx_torch.utils.timing import FitStats, Timer
-
-# result-pickle key -> segment of the flat parameters
-_PARAM_KEYS = {"global_orient": "global_orient", "betas": "betas",
-               "expression": "expression", "jaw_pose": "jaw",
-               "leye_pose": "leye", "reye_pose": "reye",
-               "left_hand_pose": "lhand", "right_hand_pose": "rhand"}
+from smplifyx_torch.viz.pose_grid import pose_vertices, render_vertex_grid
+from smplifyx_torch.viz.render import render_mesh_overlay
 
 
 @dataclass
@@ -95,6 +104,52 @@ def regression_priors(cfg: Config, records):
             cfg.regression_prior, focal, expose=expose, pixie=pixie,
             pare=pare, use_camera_prior=cfg.use_camera_prior))
     return out
+
+
+@dataclass
+class StageOutputs:
+    """Host copies of each body stage's results for a group's n frames."""
+
+    segs: list          # per stage: {segment: [n, size]}
+    body_pose: list     # per stage: [n, 63] decoded body poses
+    vertices: list      # per stage: [n, V, 3]
+
+
+def stage_outputs(sess, model, stage_x: torch.Tensor, n: int) -> StageOutputs:
+    """One forward (recover_outputs) per body stage over the group's first
+    n lanes of stage_x [S, B, D], each copied to the host once."""
+    segs, body_pose, vertices = [], [], []
+    for x in stage_x[:, :n]:
+        out, params, _ = recover_outputs(model, sess.settings, x,
+                                         sess.decode_body, joint_map=None,
+                                         device=sess.device)
+        segs.append({k: v.cpu().numpy()
+                     for k, v in unpack(sess.settings, x).items()})
+        body_pose.append(params.body_pose.cpu().numpy())
+        vertices.append(out.vertices.cpu().numpy())
+    return StageOutputs(segs, body_pose, vertices)
+
+
+def render_frame(img_dir, img, img_size, camera, faces, vertices,
+                 stages: Optional[StageOutputs], i, grid_vertices) -> None:
+    """images/<name>/: output.png, stage_XX.png per body stage and, given
+    the pose-grid vertices, pose_grid.png."""
+    from PIL import Image
+
+    os.makedirs(img_dir, exist_ok=True)
+
+    def save(file, verts, cam):
+        Image.fromarray(render_mesh_overlay(img, verts, faces, cam,
+                                            img_size=img_size)
+                        ).save(osp.join(img_dir, file))
+
+    save("output.png", vertices, camera)
+    for s, seg in enumerate(stages.segs if stages else ()):
+        save(f"stage_{s:02d}.png", stages.vertices[s][i],
+             camera._replace(translation=seg["cam_t"][i]))
+    if grid_vertices is not None:
+        Image.fromarray(render_vertex_grid(grid_vertices, faces, tile=256)
+                        ).save(osp.join(img_dir, "pose_grid.png"))
 
 
 def run(cfg: Config, model=None, max_frames: Optional[int] = None,
@@ -187,8 +242,16 @@ def run(cfg: Config, model=None, max_frames: Optional[int] = None,
                 body_pose=body_pose, center=batch.frames.center[:n],
                 loss=res.loss[:n], flipped=res.flipped[:n],
                 stage_evals=res.stage_evals[:, :n],
-                **{key: seg[s] for key, s in _PARAM_KEYS.items()}).items()}
+                **{key: seg[s] for key, s in PARAM_KEYS.items()}).items()}
             faces = group_model.faces.cpu().numpy()
+
+        stages = grid = None
+        if cfg.visualize:
+            with timer.span("viz_forward"):
+                if res.stage_x is not None:
+                    stages = stage_outputs(sess, group_model, res.stage_x, n)
+                if sess.vposer is not None:
+                    grid = pose_vertices(group_model, host["body_pose"])
 
         with timer.span("write"):
             for i, name in enumerate(batch.names):
@@ -200,9 +263,12 @@ def run(cfg: Config, model=None, max_frames: Optional[int] = None,
                     pkl_path, camera_translation=host["cam_t"][i],
                     camera_center=host["center"][i],
                     focal_length=batch.focals[i], H=H, W=W,
-                    params={key: host[key][i] for key in _PARAM_KEYS},
+                    params={key: host[key][i] for key in PARAM_KEYS},
                     body_pose=host["body_pose"][i],
                     loss=float(host["loss"][i]),
+                    stages=None if stages is None else [
+                        stage_record(seg, stages.body_pose[s], i)
+                        for s, seg in enumerate(stages.segs)],
                 )
                 result_files.append(pkl_path)
                 frame_mesh_dir = osp.join(mesh_dir, name)
@@ -214,6 +280,25 @@ def run(cfg: Config, model=None, max_frames: Optional[int] = None,
                 if cfg.save_vertices:
                     write_ply(osp.join(frame_result_dir, "vertices.ply"),
                               host["vertices"][i])
+        if cfg.visualize:
+            records = {rec.fn: rec for rec in group_records}
+            with timer.span("render"):
+                for i, name in enumerate(batch.names):
+                    rec = records.get(name.split("/")[0])
+                    img = None
+                    if rec is not None:
+                        img = rec.img if rec.img is not None else load_image(
+                            rec.img_path)
+                    camera = CameraParams(
+                        rotation=np.eye(3, dtype=np.float32),
+                        translation=host["cam_t"][i],
+                        focal=np.full(2, batch.focals[i], np.float32),
+                        center=host["center"][i])
+                    render_frame(
+                        osp.join(out, "images", name), img,
+                        batch.img_sizes[i], camera, faces,
+                        host["vertices"][i], stages, i,
+                        None if grid is None else grid[i:i + 1])
         names.extend(batch.names)
         losses.append(host["loss"])
         evals.append(host["stage_evals"])

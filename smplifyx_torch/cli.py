@@ -12,8 +12,9 @@ from smplifyx_torch.app import run
 from smplifyx_torch.utils.config import parse_cli
 
 
-def main(argv=None) -> None:
-    run(parse_cli(argv))
+def main(argv=None):
+    """Run the app on the parsed flags; returns its AppResult."""
+    return run(parse_cli(argv))
 
 
 if __name__ == "__main__":

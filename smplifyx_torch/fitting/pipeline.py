@@ -41,8 +41,8 @@ from smplifyx_torch.utils.device import full_f32_matmuls, resolve_device
 
 @dataclass(frozen=True)
 class FitOptions:
-    """Pipeline options (the JAX package's FitOptions without the
-    TPU-precision and stage-snapshot fields)."""
+    """Pipeline options (the JAX package's FitOptions without its
+    TPU-precision field)."""
 
     lbfgs: LBFGSConfig = field(default_factory=LBFGSConfig)
     camera_lbfgs: LBFGSConfig = field(default_factory=LBFGSConfig)
@@ -61,6 +61,9 @@ class FitOptions:
     # "eval" runs the broad phase in every evaluation (exact reference
     # semantics).
     coll_broad_refresh: str = "iter"
+    # Keep the parameters after every body stage (FitResult.stage_x): the
+    # per-stage overlays of the reference (fit_single_frame.py:509-520).
+    keep_stage_params: bool = False
 
 
 @dataclass
@@ -73,6 +76,9 @@ class FitResult:
     stage_evals: torch.Tensor   # [S, B] objective evaluations per body stage
     camera_evals: torch.Tensor  # [B] evaluations of stage 0; 0 when skipped
     host_reads: int             # device -> host reads steering the loops
+    # [S, B, D] params after each body stage (winning orientation); None
+    # unless FitOptions.keep_stage_params
+    stage_x: Optional[torch.Tensor] = None
 
 
 def _check_device(dev: torch.device, **tensors):
@@ -190,7 +196,7 @@ def fit_batch(
         ).vertices
 
     x_cur = xs
-    losses, evals = [], []
+    losses, evals, snaps = [], [], []
     for k in range(num_stages):
         w = stage_weights.stage(k)
         with_coll = coll_stage_mask[k]
@@ -222,6 +228,10 @@ def fit_batch(
         x_cur = res.x
         losses.append(res.f)
         evals.append(res.n_evals)
+        if options.keep_stage_params:
+            # a copy: the next stage's L-BFGS may update x in place
+            snaps.append(res.x.detach().clone())
+    stage_x = torch.stack(snaps) if options.keep_stage_params else None
     stage_losses = torch.stack(losses)
     stage_evals = torch.stack(evals)
     final_loss = stage_losses[-1]
@@ -239,6 +249,9 @@ def fit_batch(
                                    stage_losses[:, :B])
         stage_evals = torch.where(take_flip[None], stage_evals[:, B:],
                                   stage_evals[:, :B])
+        if stage_x is not None:
+            stage_x = torch.where(take_flip[None, :, None], stage_x[:, B:],
+                                  stage_x[:, :B])
     else:
         take_flip = torch.zeros(B, dtype=torch.bool, device=dev)
         x_out, loss_out = x_cur, final_loss
@@ -246,7 +259,7 @@ def fit_batch(
     return FitResult(
         x=x_out, loss=loss_out, camera_loss=camera_loss, flipped=take_flip,
         stage_losses=stage_losses, stage_evals=stage_evals,
-        camera_evals=camera_evals, host_reads=reads,
+        camera_evals=camera_evals, host_reads=reads, stage_x=stage_x,
     )
 
 

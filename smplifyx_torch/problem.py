@@ -43,6 +43,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from smplifyx_torch.evaluation.metrics import procrustes_v2v
 from smplifyx_torch.fitting.energy import FrameData
 from smplifyx_torch.fitting.params import FitSettings, pack
 from smplifyx_torch.models.bodymodel import (
@@ -96,6 +97,41 @@ def _ground_truth(rng, B, dev):
 def ground_truth(B: int, device="cuda") -> BodyParams:
     """The ground-truth body parameters of `build_problem`'s B frames."""
     return _ground_truth(np.random.default_rng(0), B, resolve_device(device))[0]
+
+
+def ground_truth_meshes(model, B: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(vertices [B, V, 3], skeleton joints [B, J, 3]) of the first B
+    ground-truth poses on `model`, on the model's device."""
+    dev = model.lbs_weights.device
+    with torch.no_grad():
+        out = smplx_forward(model, ground_truth(B, dev))
+    return out.vertices, out.joints[:, :model.num_joints]
+
+
+def fit_meshes(model, settings: FitSettings, decode_body,
+               x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(vertices, skeleton joints) of fitted flat parameters x [B, D]."""
+    from smplifyx_torch.fitting.pipeline import recover_outputs
+
+    out, _, _ = recover_outputs(model, settings, x, decode_body,
+                                device=x.device)
+    return out.vertices, out.joints[:, :model.num_joints]
+
+
+def lane_errors_mm(fit_v, gt_v, fit_j, gt_j, parts) -> dict:
+    """Per-lane errors in mm on the inputs' device: PA-V2V over all
+    vertices and over each part of `parts` (a PartVertexIds; each part
+    aligned on its own, as the EHF protocol does), and PA-MPJPE over the
+    joints."""
+    def pa(a, b):
+        return 1000.0 * procrustes_v2v(a, b).mean(-1)
+
+    out = {"pa_v2v": pa(fit_v, gt_v)}
+    for name in ("body", "face", "left_hand", "right_hand"):
+        ids = torch.as_tensor(getattr(parts, name), device=fit_v.device)
+        out[f"pa_v2v_{name}"] = pa(fit_v[:, ids], gt_v[:, ids])
+    out["pa_mpjpe"] = pa(fit_j, gt_j)
+    return out
 
 
 def build_problem(B: int, V: int = 10475, smooth: bool = False,

@@ -7,13 +7,18 @@ gender ({model_folder}/{family}/{FAMILY}_{GENDER}.npz, else .pkl), the
 priors (GMMs, VPoser), the stage schedule, the optimizer options and the
 collision term.  `FitSession.fit_stages` runs the same fit one stage per
 call.
+
+The collision tables are built from the model given to `build_fit_session`
+or, without one, from the first model a fit receives (the gendered SMPL-X
+models share one mesh topology), as the JAX package builds them: a model
+folder needs only the genders a run fits.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os.path as osp
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -60,7 +65,18 @@ class FitSession:
     coll_stage_mask: Optional[tuple]
     get_model: Callable[[str], object]
     device: torch.device
-    collision_fn: object        # CollisionFn, or None without interpenetration
+    # CollisionFn; None without interpenetration, or until the first fit
+    # builds it from its model (`collision_for`)
+    collision_fn: object
+    # make_collision_fn's arguments besides the faces, kept for that build
+    collision_args: Optional[dict] = field(default=None, repr=False)
+
+    def collision_for(self, model):
+        """The collision term, built from `model`'s faces on first use."""
+        if self.collision_fn is None and self.collision_args is not None:
+            self.collision_fn = make_collision_fn(model.faces,
+                                                  **self.collision_args)
+        return self.collision_fn
 
     def fit(self, model, joints_model, frames, x0) -> FitResult:
         """Run the staged fit on a prepared batch."""
@@ -70,7 +86,7 @@ class FitSession:
             edge_idxs=self.edge_idxs, joints_model=joints_model,
             coll_stage_mask=self.coll_stage_mask,
             lhand_gmm=self.lhand_gmm, rhand_gmm=self.rhand_gmm,
-            collision_fn=self.collision_fn, device=self.device,
+            collision_fn=self.collision_for(model), device=self.device,
         )
 
     def fit_stages(self, model, joints_model, frames,
@@ -90,6 +106,7 @@ class FitSession:
         mask = self.coll_stage_mask or (False,) * num_stages
         body_options = dataclasses.replace(self.options, camera_stage=False,
                                            try_both_orient=False)
+        collision_fn = self.collision_for(model)
         x = x0
         for k in range(num_stages):
             res = fit_batch(
@@ -98,7 +115,7 @@ class FitSession:
                 self.decode_body, self.joint_map, gmm=self.gmm,
                 edge_idxs=self.edge_idxs, joints_model=joints_model,
                 coll_stage_mask=(mask[k],), lhand_gmm=self.lhand_gmm,
-                rhand_gmm=self.rhand_gmm, collision_fn=self.collision_fn,
+                rhand_gmm=self.rhand_gmm, collision_fn=collision_fn,
                 device=self.device,
             )
             x = res.x
@@ -133,12 +150,6 @@ def build_fit_session(cfg: Config, model=None, device=None) -> FitSession:
     if cfg.camera_type != "persp":
         raise NotImplementedError(
             f"camera_type={cfg.camera_type!r}: only 'persp' is supported")
-    if cfg.visualize:
-        raise NotImplementedError(
-            "visualize: true needs the overlays and per-stage snapshots "
-            "(keep_stage_params, stage_x) of viz/, which are not ported yet "
-            "(ROADMAP queue 1)"
-        )
     if cfg.optim_type.lower() not in ("lbfgs", "lbfgsls"):
         raise NotImplementedError(
             f"optim_type={cfg.optim_type!r}: the first-order optimizers are "
@@ -203,23 +214,22 @@ def build_fit_session(cfg: Config, model=None, device=None) -> FitSession:
             vposer = load_vposer(osp.expandvars(cfg.vposer_ckpt), dev)
         decode_body = vposer.decode
 
-    collision_fn = coll_stage_mask = None
+    collision_fn = collision_args = coll_stage_mask = None
     if cfg.interpenetration:
         segm = parents = None
         if cfg.part_segm_fn:
             segm, parents = load_part_segm(osp.expandvars(cfg.part_segm_fn))
-        # Built once from the given or the neutral model's faces: the
-        # gendered SMPL-X models share one mesh topology.  The narrow-phase
-        # budget honours at least the reference's max_collisions.
-        faces = (model if model is not None else get_model("neutral")).faces
-        collision_fn = make_collision_fn(
-            faces, segm=segm, parents=parents,
-            ign_part_pairs=cfg.ign_part_pairs,
+        # The narrow-phase budget honours at least the reference's
+        # max_collisions.
+        collision_args = dict(
+            segm=segm, parents=parents, ign_part_pairs=cfg.ign_part_pairs,
             max_pairs=max(cfg.max_coll_pairs, cfg.max_collisions),
             sigma=cfg.df_cone_height,
             penalize_outside=cfg.penalize_outside,
             point2plane=cfg.point2plane,
         )
+        if model is not None:
+            collision_fn = make_collision_fn(model.faces, **collision_args)
         weights = cfg.coll_loss_weights or [0.0] * cfg.num_stages
         coll_stage_mask = tuple(float(v) > 0 for v in weights)
     schedule = build_stage_schedule(
@@ -250,6 +260,9 @@ def build_fit_session(cfg: Config, model=None, device=None) -> FitSession:
         side_view_thsh=cfg.side_view_thsh,
         left_shoulder_idx=ls, right_shoulder_idx=rs,
         use_camera_prior=cfg.use_camera_prior and bool(cfg.regression_prior),
+        # Per-stage snapshots feed the per-stage overlays (reference
+        # fit_single_frame.py:509-520), kept only when the app draws them.
+        keep_stage_params=cfg.visualize,
     )
     edge_idxs = torch.as_tensor(cfg.body_tri_pairs, dtype=torch.int64,
                                 device=dev)
@@ -259,5 +272,5 @@ def build_fit_session(cfg: Config, model=None, device=None) -> FitSession:
         vposer=vposer, gmm=gmm, lhand_gmm=hand_gmm(cfg.left_hand_prior_type),
         rhand_gmm=hand_gmm(cfg.right_hand_prior_type),
         coll_stage_mask=coll_stage_mask, get_model=get_model, device=dev,
-        collision_fn=collision_fn,
+        collision_fn=collision_fn, collision_args=collision_args,
     )

@@ -136,6 +136,20 @@ def write_obj(path: str, vertices: np.ndarray, faces: np.ndarray) -> None:
         f.write(("f %d %d %d\n" * len(fc)) % tuple(fc.ravel()))
 
 
+# result-pickle key -> segment of the flat parameters (fitting/params.py)
+PARAM_KEYS = {"global_orient": "global_orient", "betas": "betas",
+              "expression": "expression", "jaw_pose": "jaw",
+              "leye_pose": "leye", "reye_pose": "reye",
+              "left_hand_pose": "lhand", "right_hand_pose": "rhand"}
+
+
+def stage_record(seg: dict, body_pose: np.ndarray, i: int) -> dict:
+    """One "stages" entry of a result pickle: row i of the host copies of
+    the flat parameters' segments, with the decoded body pose."""
+    return {"camera_translation": seg["cam_t"][i], "body_pose": body_pose[i],
+            **{key: seg[s][i] for key, s in PARAM_KEYS.items()}}
+
+
 def save_result_pickle(
     path: str,
     camera_translation: np.ndarray,

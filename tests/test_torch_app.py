@@ -35,7 +35,13 @@ from smplifyx_torch.app import regression_priors, run
 from smplifyx_torch.data.keypoints import create_dataset
 from smplifyx_torch.fitting.prepare import prepare_batch
 from smplifyx_torch.models.sparse import build_joints_model
-from smplifyx_torch.problem import SLICE_PRESET, write_app_inputs
+from smplifyx_torch.ops.collision import make_collision_fn
+from smplifyx_torch.problem import (
+    SLICE_PRESET,
+    slice_model,
+    write_app_inputs,
+    write_smplx_npz,
+)
 from smplifyx_torch.session import build_fit_session
 from smplifyx_torch.utils.config import load_config, parse_cli, save_config
 from smplifyx_torch.utils.io import read_ply
@@ -200,7 +206,8 @@ def test_cli_runs_every_preset_on_the_cpu(folder, tmp_path, preset):
 def test_entry_points_run_on_the_card_unless_asked(folder, tmp_path,
                                                    monkeypatch):
     """Without a card, the default (and "gpu", "cuda") raises before the
-    output folder is touched; "tpu" is no platform of the port."""
+    output folder is touched; "tpu" is no platform of the port.  On the
+    CPU, visualize writes the overlays."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = tmp_path / "out"
     out.mkdir()
@@ -218,9 +225,56 @@ def test_entry_points_run_on_the_card_unless_asked(folder, tmp_path,
                         output_folder=str(out)))
     assert (out / "keep").exists()
     cfg = load_config(PRESETS["combined_coco25"], **folder.overrides,
-                      visualize=True, output_folder=str(out))
-    with pytest.raises(NotImplementedError, match="viz"):
-        run(cfg, device="cpu")
+                      visualize=True, output_folder=str(out), maxiters=1,
+                      interactive=False)
+    res = run(cfg, device="cpu")
+    for name in res.names:
+        assert sorted(os.listdir(out / "images" / name)) == [
+            "output.png", "stage_00.png", "stage_01.png", "stage_02.png"]
+
+
+def test_collision_tables_come_from_the_first_fitted_model(folder, tmp_path):
+    """Collision on, gender male and a model folder holding only
+    SMPLX_MALE.npz: the session builds its collision tables from the first
+    model it fits and never reads a neutral model, as the JAX package."""
+    models_dir = tmp_path / "models"
+    (models_dir / "smplx").mkdir(parents=True)
+    male = models_dir / "smplx" / "SMPLX_MALE.npz"
+    write_smplx_npz(slice_model(V, "cpu"), str(male))
+    over = dict(folder.overrides, model_folder=str(models_dir), gender="male",
+                output_folder=str(tmp_path / "out"), maxiters=1,
+                interactive=False)
+    cfg = load_config(PRESETS["combined_vposer_coco25"], **over)
+    assert cfg.interpenetration
+    sess = build_fit_session(cfg, device="cpu")
+    assert sess.collision_fn is None
+    res = run(cfg, device="cpu")
+    assert np.isfinite(res.losses).all() and len(res.result_files) == FRAMES
+    sess.fit(*_fit_args(sess, cfg))
+    model = sess.get_model("male")
+    want = make_collision_fn(model.faces, **sess.collision_args)
+    for name in ("faces", "segm", "parents"):
+        assert torch.equal(getattr(sess.collision_fn, name),
+                           getattr(want, name)), name
+    assert (sess.collision_fn.P, sess.collision_fn.T, sess.collision_fn.ign) \
+        == (want.P, want.T, want.ign)
+    assert not (models_dir / "smplx" / "SMPLX_NEUTRAL.npz").exists()
+    jsess = j_build_fit_session(j_load_config(PRESETS["combined_vposer_coco25"],
+                                              **over))
+    assert jsess.get_model("male").faces.shape == tuple(model.faces.shape)
+
+
+def _fit_args(sess, cfg):
+    """(model, joints model, frames, x0) of the config's data folder."""
+    model = sess.get_model(cfg.gender)
+    records = list(create_dataset(
+        format=cfg.format, data_folder=cfg.data_folder,
+        use_face_contour=cfg.use_face_contour,
+        joints_to_ign=cfg.joints_to_ign))
+    batch = prepare_batch(cfg, records, sess.joint_weights(),
+                          regression=regression_priors(cfg, records),
+                          vposer=sess.vposer, device="cpu")
+    return model, build_joints_model(model), batch.frames, batch.x0
 
 
 def test_fit_stages_matches_jax(folder, models):

@@ -153,7 +153,7 @@ def test_session_runs_the_slice_end_to_end():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(visualize=True), "viz"),
+    (dict(optim_type="sgd"), "item 8"),
     (dict(optim_type="adam"), "item 8"),
 ])
 def test_session_refuses_unported_paths(override, item):
