@@ -28,7 +28,21 @@ and PIXIE results), run twice (the second timed, with its `Timer` spans),
 its loaded model and prepared keypoints held equal to the in-memory ones,
 and 4 of its frames refitted on the CPU through `app.run`.
 
-After each of the three paths the `quality` phase holds the fit's meshes
+The `serve` phase runs `serve.FitService` over the collision-on session
+(`serve_http` on 127.0.0.1, `tools/load_serve.py` at 8 clients x 4
+requests and 32 x 2), checks /healthz against the requests completed, and
+refits the first batch served under load directly: the served losses and
+parameters must be its bits.  The `first_order` phase fits the
+collision-on preset with adam at B=32 (a broad phase in every
+collision-stage evaluation, two row plans each) and short collision-off
+fits with sgd and rmsprop, each twice (bit-equal), below the energy at its
+start, with 4 lanes refitted on the CPU.  The `app` phase also reads its
+JSONs through the native keypoint parser (`data/native.py`, built with the
+host compiler beside the kernels) and the Python reader: the same
+keypoints.
+
+After the collision-on, collision-off, first-order and app paths the
+`quality` phase holds the fit's meshes
 against the problem's ground truth through `evaluation/metrics.py` on the
 card (PA-V2V in mm over all vertices and per part of
 `synthetic_part_vertex_ids`, PA-MPJPE over the skeleton joints) and
@@ -99,6 +113,30 @@ VIZ_FRAMES = 8      # frames of the viz path: the host rasteriser draws
 # A pickle's last "stages" entry against its final parameters: the same x,
 # with VPoser decoding another batch.
 STAGE_PARAM_TOL = 1e-6
+
+# The serve phase: FitService over the collision-on session, and the load
+# points (clients, requests per client) that tools/load_serve.py drives.
+SERVE_OPTIONS = dict(max_batch=32, max_wait_s=0.25, max_queue=256)
+SERVE_LOADS = ((8, 4), (32, 2))
+# The first-order phase: 32 frames (64 lanes with try_both_orient), cut
+# from 128 because every collision-stage evaluation runs a broad phase.
+# The learning rates were chosen on CPU fits at V=96 (optax's rules): the
+# preset's lr 1.0 is L-BFGS's first step.  adam runs the collision-on
+# preset; sgd and rmsprop a short collision-off fit (maxiters 10: 20
+# iterations per stage), where Nesterov SGD takes a tiny step because the
+# data term's gradients reach 1e5.
+FIRST_ORDER_BATCH = 32
+FIRST_ORDER = {
+    "adam": dict(optim_type="adam", lr=0.01),
+    "sgd": dict(optim_type="sgd", lr=1e-9, maxiters=10,
+                interpenetration=False),
+    "rmsprop": dict(optim_type="rmsprop", lr=1e-3, maxiters=10,
+                    interpenetration=False),
+}
+FIRST_ORDER_CPU_LANES = 4
+# CPU refit of the collision-off first-order lanes: the median final loss
+# within 1% of the card's, every lane within 5%.
+FIRST_ORDER_MEDIAN_RTOL = 0.01
 
 # Data-sheet peaks (dense, no sparsity): FP32 on the CUDA cores, memory rate.
 PEAKS = {  # name fragment -> (FP32 FLOP/s, bytes/s)
@@ -242,14 +280,16 @@ def phase_device():
 
 
 KERNEL_SOURCES = ("lbs", "gather")
+HOST_LIBRARIES = ("keypoints_torch",)   # the native keypoint parser
 
 
 def phase_build():
-    """nvcc for every kernel source, all started together."""
+    """nvcc for every kernel source and the host compiler for the keypoint
+    parser, all started together."""
     from smplifyx_torch.ops import nvcc
 
     t0 = time.perf_counter()
-    report = nvcc.build(*KERNEL_SOURCES, force=True)
+    report = nvcc.build(*KERNEL_SOURCES, *HOST_LIBRARIES, force=True)
     wall = time.perf_counter() - t0
     for name, (seconds, ptxas) in report.items():
         emit({"phase": "build", "source": name, "seconds": seconds,
@@ -667,6 +707,7 @@ def setup(label, **overrides):
           "interpenetration": bool(session.cfg.interpenetration),
           "coll_stage_mask": session.coll_stage_mask,
           "aux_every": session.options.lbfgs.aux_every,
+          "optim_type": session.options.optim_type,
           "subset_vertices": int(jm.sub_lbs.shape[0]), "dim": int(x0.shape[1])})
     return session, model, jm, frames, x0
 
@@ -971,14 +1012,25 @@ def phase_app():
                                                    "vertices.ply"))
                        for n in names)}
 
-        # The batch the app prepared, rebuilt from the same files: its
-        # keypoints and confidences against the in-memory problem's.
+        # The files read again through the native parser and through the
+        # Python reader: the same keypoints.  Then the batch the app
+        # prepared, rebuilt from them: its keypoints and confidences
+        # against the in-memory problem's.
         session = build_fit_session(cfg)
-        records = list(create_dataset(
-            format=cfg.format, data_folder=cfg.data_folder,
-            use_hands=cfg.use_hands, use_face=cfg.use_face,
-            use_face_contour=cfg.use_face_contour,
-            joints_to_ign=cfg.joints_to_ign))
+        reads, read_s = {}, {}
+        for reader, choice in (("native", True), ("python", False)):
+            t0 = time.perf_counter()
+            reads[reader] = list(create_dataset(
+                format=cfg.format, data_folder=cfg.data_folder,
+                use_hands=cfg.use_hands, use_face=cfg.use_face,
+                use_face_contour=cfg.use_face_contour,
+                joints_to_ign=cfg.joints_to_ign, use_native_parser=choice))
+            read_s[reader] = time.perf_counter() - t0
+        records = reads["native"]
+        native_equal = len(records) == len(reads["python"]) == APP_FRAMES \
+            and all(np.array_equal(a.keypoints, b.keypoints)
+                    and a.keypoints.dtype == b.keypoints.dtype
+                    for a, b in zip(records, reads["python"]))
         batch = prepare_batch(cfg, records, session.joint_weights(),
                               regression=regression_priors(cfg, records),
                               vposer=session.vposer, device="cuda")
@@ -1026,6 +1078,7 @@ def phase_app():
         "launches": launches, "lbs_launches": lbs_split,
         "fit_counts": plans, "files": files,
         "model_equal": model_equal, "read_equal": read_equal,
+        "read_s": read_s, "native_read_equal": native_equal,
         "rerun_bit_equal": first == second,
         "loss_median": float(np.median(second)),
         "reproj_px_median": float(reproj.median()),
@@ -1040,6 +1093,9 @@ def phase_app():
         raise AssertionError(f"the loaded model differs: {model_equal}")
     if not all(read_equal.values()):
         raise AssertionError(f"keypoints read from the JSONs differ: {read_equal}")
+    if not native_equal:
+        raise AssertionError("the native parser and the Python reader read "
+                             "other keypoints from the same JSONs")
     if files != {"pkl": APP_FRAMES, "obj": APP_FRAMES, "ply": APP_FRAMES}:
         raise AssertionError(f"the app wrote {files} for {APP_FRAMES} frames")
     if first != second:
@@ -1319,6 +1375,284 @@ def phase_viz():
     return launches
 
 
+def _lbs_split(launches, V, S):
+    by_rows = launches["lbs_by_rows"]
+    return {"full_mesh": by_rows.get(V, 0), "subset": by_rows.get(S, 0)}
+
+
+def _check_path_launches(label, launches, needs, V, S):
+    """Every kernel in `needs` launched; K1 on the landmark subset always,
+    on the full mesh when the path has a collision stage."""
+    for name in needs:
+        if launches[name] <= 0:
+            raise AssertionError(f"the {label} run never launched the "
+                                 f"{name} kernel")
+    split = _lbs_split(launches, V, S)
+    if split["subset"] <= 0 or (split["full_mesh"] > 0) != ("gather" in needs):
+        raise AssertionError(f"the {label} run launched K1 {split}")
+
+
+def phase_serve(session, model, jm, frames):
+    """The fit service over the collision-on session (the slice's model,
+    V=10475): `serve_http` on 127.0.0.1, one warm-up request, then the
+    port's load tool at SERVE_LOADS with the problem's keypoints (600x800
+    images).  Launch counts are set to 0 just before each load point and
+    read just after.  /healthz must count every completed request, and the
+    first batch served under load, fitted again directly (prepare_batch,
+    pad_prepared to its bucket, session.fit), must give its served losses
+    and parameters to the bit.  Returns the launches summed over the load
+    points."""
+    import urllib.request
+
+    import torch
+
+    from smplifyx_torch.fitting.params import unpack
+    from smplifyx_torch.fitting.prepare import pad_prepared, prepare_batch
+    from smplifyx_torch.problem import IMG_H, IMG_W
+    from smplifyx_torch.serve import FitService, serve_http
+    from smplifyx_torch.tools import load_serve
+
+    keypoints = torch.cat([frames.gt_joints, frames.conf[..., None]],
+                          -1).cpu().numpy()
+    size = (int(IMG_H), int(IMG_W))
+    V, S = model.num_verts, jm.sub_lbs.shape[0]
+    svc = FitService(session, **SERVE_OPTIONS)
+    server = serve_http(svc, port=0)
+    rows, total = [], {}
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        t0 = time.perf_counter()
+        load_serve.post(base, keypoints[0], size, "warm")
+        warm_s = time.perf_counter() - t0
+
+        recorded = []
+        serve_group = svc._fit_group
+
+        def recording(gender, reqs):
+            recorded.append((gender, [r.record for r in reqs],
+                             [r.future for r in reqs]))
+            return serve_group(gender, reqs)
+
+        svc._fit_group = recording
+        for clients, per_client in SERVE_LOADS:
+            reset_counts()
+            counter = FitCounter()
+            with counter as fits:
+                row = load_serve.drive(base, svc, keypoints, size, clients,
+                                       per_client)
+                torch.cuda.synchronize()
+            launches = read_counts()
+            for k, v in launches.items():
+                if isinstance(v, int):
+                    total[k] = total.get(k, 0) + v
+            row.update(
+                phase="serve", card=torch.cuda.get_device_name(0),
+                B_max=SERVE_OPTIONS["max_batch"], V=V, warm_s=warm_s,
+                launches=launches, lbs_launches=_lbs_split(launches, V, S),
+                fits=fits["fits"],
+                host_reads=sum(r.host_reads for r in counter.results),
+                buckets=[int(r.x.shape[0]) for r in counter.results])
+            rows.append(row)
+            emit(row)
+            if row["errors"] or row["completed"] != clients * per_client:
+                raise AssertionError(f"serving {clients} x {per_client}: "
+                                     f"{row['errors']} errors, first "
+                                     f"{row['first_errors']}")
+            _check_path_launches("serve", launches,
+                                 ("lbs", "gather", "scatter", "scatter_join"),
+                                 V, S)
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        svc._fit_group = serve_group
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.stop(timeout=600)
+
+    # the first batch served under load, fitted again directly
+    gender, records, futures = recorded[0]
+    served = [f.result() for f in futures]
+    n = len(records)
+    prepared = prepare_batch(session.cfg, records, session.joint_weights(),
+                             vposer=session.vposer, gmm=session.gmm,
+                             device=session.device)
+    bucket = max(svc.min_bucket, 1 << (n - 1).bit_length())
+    prepared = pad_prepared(prepared, bucket)
+    res = session.fit(*svc._get_models(gender), prepared.frames, prepared.x0)
+    seg = {k: v.cpu().numpy() for k, v in unpack(session.settings,
+                                                  res.x[:n]).items()}
+    refit_equal = ([r["loss"] for r in served] == res.loss[:n].tolist()
+                   and all(np.array_equal(
+                       np.asarray([r["params"][k] for r in served], np.float32),
+                       v) for k, v in seg.items()))
+    completed = 1 + sum(r["completed"] for r in rows)
+    emit({"phase": "serve_check", "healthz": health,
+          "completed_with_warmup": completed,
+          "worker_stopped": not svc._worker.is_alive(),
+          "refit_batch": n, "refit_bucket": bucket,
+          "refit_bit_equal": refit_equal,
+          "loss_median_served": float(np.median([r["loss"] for r in served]))})
+    if health["fits_completed"] != completed or \
+            health["batches_dispatched"] != svc.batches_dispatched:
+        raise AssertionError(f"/healthz counts {health}, {completed} completed")
+    if svc._worker.is_alive():
+        raise AssertionError("the service's worker did not stop")
+    if not refit_equal:
+        raise AssertionError("the served batch and its direct refit differ")
+    return total
+
+
+class EvalCounter:
+    """Counts, inside the block, the energy evaluations of `fit_batch`
+    that carry the collision term (pipeline.smplify_energy called with a
+    collision_fn)."""
+
+    def __enter__(self):
+        from smplifyx_torch.fitting import pipeline
+
+        self.counts = {"collision": 0, "other": 0}
+        self._energy = energy = pipeline.smplify_energy
+
+        def counted(*args, **kwargs):
+            key = ("collision" if kwargs.get("collision_fn") is not None
+                   else "other")
+            self.counts[key] += 1
+            return energy(*args, **kwargs)
+
+        pipeline.smplify_energy = counted
+        return self.counts
+
+    def __exit__(self, *exc):
+        from smplifyx_torch.fitting import pipeline
+
+        pipeline.smplify_energy = self._energy
+
+
+def start_loss(session, model, jm, frames, x0):
+    """The last body stage's energy at the point a fit starts from: x0
+    with the guess-init camera depth."""
+    import torch
+
+    from smplifyx_torch.fitting.energy import guess_camera_depth, smplify_energy
+    from smplifyx_torch.fitting.params import pack, unpack
+
+    with torch.no_grad():
+        seg = unpack(session.settings, x0)
+        seg["cam_t"] = guess_camera_depth(
+            session.settings, model, x0, frames.gt_joints, session.edge_idxs,
+            frames.focal[:, 0], session.decode_body, session.joint_map,
+            joints_model=jm)
+        S = session.schedule.num_stages
+        return smplify_energy(
+            pack(session.settings, **seg), session.settings, model, frames,
+            session.schedule.stage(S - 1), S - 1, S, session.decode_body,
+            session.joint_map, joints_model=jm,
+            collision_fn=session.collision_fn)
+
+
+def phase_first_order(name):
+    """One first-order optimizer (FIRST_ORDER[name]) through the entry
+    points: fit twice (bit-equal), the second timed with the launch counts
+    set to 0 just before it and read just after; with the collision term,
+    one broad phase per collision-stage evaluation and two row plans per
+    broad phase.  The final losses must be finite and below the energy at
+    the fit's start; FIRST_ORDER_CPU_LANES lanes fitted again on the CPU:
+    collision on, the median within LANE_LOSS_RTOL; off, the median within
+    FIRST_ORDER_MEDIAN_RTOL and every lane within LANE_LOSS_RTOL.  Returns
+    (launches, (session, model, result, lane_ref)) for `quality`."""
+    import torch
+
+    from smplifyx_torch.models.sparse import build_joints_model
+    from smplifyx_torch.ops.gather import row_plan
+    from smplifyx_torch.problem import slice_session
+
+    overrides = FIRST_ORDER[name]
+    label = f"first_order_{name}"
+    session, model, jm, frames, x0 = setup(label, batch=FIRST_ORDER_BATCH,
+                                           **overrides)
+
+    t0 = time.perf_counter()
+    first = session.fit(model, jm, frames, x0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    fn = session.collision_fn
+    broad = count_broad_phases(fn)
+    reset_counts()
+    row_plan.builds = 0
+    with EvalCounter() as evals:
+        t0 = time.perf_counter()
+        res = session.fit(model, jm, frames, x0)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    plan_builds = row_plan.builds
+    broad = dict(broad)
+    for key in broad:
+        delattr(fn, key)
+    start = start_loss(session, model, jm, frames, x0)
+    rerun_equal = bool(torch.equal(first.x, res.x)
+                       and torch.equal(first.loss, res.loss))
+
+    cpu_session, cpu_model = slice_session(device="cpu", **overrides)
+    n = FIRST_ORDER_CPU_LANES
+    t0 = time.perf_counter()
+    cpu = cpu_session.fit(cpu_model, build_joints_model(cpu_model),
+                          frames.map(lambda a: a[:n].cpu()), x0[:n].cpu())
+    cpu_s = time.perf_counter() - t0
+    card = res.loss[:n].cpu()
+    rel = (card - cpu.loss).abs() / cpu.loss.abs()
+    median_rel = abs(float(card.median()) - float(cpu.loss.median())) \
+        / abs(float(card.median()))
+    V, S = model.num_verts, jm.sub_lbs.shape[0]
+    collision = fn is not None
+    row = {
+        "phase": "first_order", "optimizer": name, "path": label,
+        "card": torch.cuda.get_device_name(0),
+        "B": int(x0.shape[0]), "lanes": 2 * int(x0.shape[0]), "V": V,
+        **{k: v for k, v in overrides.items() if k != "optim_type"},
+        "first_fit_s": first_s, "fit_s": fit_s,
+        "frames_per_s": x0.shape[0] / fit_s, "host_reads": res.host_reads,
+        "launches": launches, "lbs_launches": _lbs_split(launches, V, S),
+        "collision_evals": evals["collision"], "other_evals": evals["other"],
+        "broad_phases": broad, "plan_builds": plan_builds,
+        "camera_evals_max": int(res.camera_evals.max()),
+        "stage_evals_max": res.stage_evals.amax(1).tolist(),
+        "rerun_bit_equal": rerun_equal,
+        "loss_median": float(res.loss.median()),
+        "start_loss_median": float(start.median()),
+        "lanes_below_start": int((res.loss < start).sum()),
+        "stage_loss_median": res.stage_losses.median(1).values.tolist(),
+        "cpu_lanes": n, "cpu_fit_s": cpu_s, "loss_card": card.tolist(),
+        "loss_cpu": cpu.loss.tolist(), "cpu_rel_diff": rel.tolist(),
+        "cpu_median_rel_diff": median_rel,
+    }
+    emit(row)
+    if not (bool(torch.isfinite(res.loss).all())
+            and bool((res.loss < start).all())):
+        raise AssertionError(f"the {label} fit is not finite or not below "
+                             "its start")
+    if not rerun_equal:
+        raise AssertionError(f"two {label} fits of the same inputs differ")
+    if collision:
+        if not (sum(broad.values()) == evals["collision"] > 0
+                and plan_builds == 2 * evals["collision"]):
+            raise AssertionError(
+                f"the {label} fit ran {broad} broad phases and built "
+                f"{plan_builds} row plans in {evals['collision']} "
+                "collision-stage evaluations")
+        if not median_rel <= LANE_LOSS_RTOL:
+            raise AssertionError(f"{label}: CPU median loss {median_rel:.3g} "
+                                 f"apart > {LANE_LOSS_RTOL}")
+    elif not (median_rel <= FIRST_ORDER_MEDIAN_RTOL
+              and float(rel.max()) <= LANE_LOSS_RTOL):
+        raise AssertionError(f"{label}: CPU lanes {rel.tolist()} apart "
+                             f"(median {median_rel:.3g})")
+    _check_path_launches(label, launches,
+                         ("lbs", "gather", "scatter", "scatter_join")
+                         if collision else ("lbs",), V, S)
+    return launches, (session, model, res, (cpu, cpu_session, cpu_model))
+
+
 def kernel_entry(name, source, replaces, launches, rows, shape_keys, **extra):
     main = rows[0]
     entry = {
@@ -1381,6 +1715,9 @@ def main() -> int:
     phase_quality("collision_on", model, session.settings,
                   session.decode_body, res.x, res.loss, lane_ref)
 
+    # ---- the serve path: FitService over the collision-on session
+    serve = phase_serve(session, model, jm, frames)
+
     # ---- the collision-off path of the first slice
     off = dict(interpenetration=False)
     session, model, jm, frames, x0 = setup("collision_off", **off)
@@ -1391,6 +1728,15 @@ def main() -> int:
                                     frames, x0, **off)
     phase_quality("collision_off", model, session.settings,
                   session.decode_body, res.x, res.loss, lane_ref)
+
+    # ---- the first-order path: adam with the collision term (a broad
+    # phase per evaluation), then short collision-off sgd and rmsprop fits
+    first_order, (session, model, res, lane_ref) = phase_first_order("adam")
+    phase_quality("first_order", model, session.settings,
+                  session.decode_body, res.x, res.loss, lane_ref)
+    del session, model, res, lane_ref
+    for name in ("sgd", "rmsprop"):
+        phase_first_order(name)
 
     # ---- the app path: the command line, from files
     app, (model, settings, x, losses) = phase_app()
@@ -1404,7 +1750,8 @@ def main() -> int:
 
     def by_path(name):
         return {"app": app[name], "collision_on": launches[name],
-                "viz": viz[name]}
+                "viz": viz[name], "serve": serve[name],
+                "first_order": first_order[name]}
 
     emit({"kernels": [
         kernel_entry("lbs", "smplifyx_torch/csrc/lbs.cu",

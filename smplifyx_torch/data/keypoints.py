@@ -10,8 +10,12 @@ smplifyx/data_parser.py):
   * folder datasets yielding `FrameRecord`s.  Image decode is optional:
     the fit needs only (H, W), read from the PNG or JPEG header.
 
-Only the Python JSON reader is ported; the JAX package's C++ parser
-(data/native.py) waits for its own port (ROADMAP queue 1).
+`KeypointFolderDataset` reads the JSONs with the native parser
+(data/native.py) when it builds, as the JAX package does: `use_native_parser`
+None picks it when it builds, True requires it (raising with the
+compiler's output when it cannot be built), False keeps the Python reader.
+Files that carry a gender annotation always take the Python reader, which
+keeps it.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from smplifyx_torch.data import native
 from smplifyx_torch.models.joint_mapping import (
     NUM_BODY_JOINTS_BY_FORMAT,
     SHOULDER_IDXS_BY_FORMAT,
@@ -141,17 +146,17 @@ class KeypointFolderDataset:
         use_native_parser: Optional[bool] = None,
         **_,
     ):
-        if use_native_parser:
-            raise NotImplementedError(
-                "use_native_parser=True: the C++ keypoint parser "
-                "(data/native.py) is not ported yet (ROADMAP queue 1); "
-                "None or False read the JSONs with the Python reader")
         self.format = format.lower()
         self.use_hands = use_hands
         self.use_face = use_face
         self.use_face_contour = use_face_contour
         self.joints_to_ign = joints_to_ign
         self.load_images = load_images
+        if use_native_parser is None:
+            use_native_parser = native.is_available()
+        elif use_native_parser:
+            native.load()           # raises with the compiler's output
+        self.use_native_parser = bool(use_native_parser)
 
         self.num_body_joints = NUM_BODY_JOINTS_BY_FORMAT[self.format]
         self.left_shoulder, self.right_shoulder = SHOULDER_IDXS_BY_FORMAT[self.format]
@@ -195,9 +200,19 @@ class KeypointFolderDataset:
         matches = glob(osp.join(self.keyp_folder, img_fn + "_*.json"))
         if not matches:
             raise FileNotFoundError(f"Keypoint file for {img_fn} does not exist")
-        kp = read_keypoints(matches[0], use_hands=self.use_hands,
-                            use_face=self.use_face,
-                            use_face_contour=self.use_face_contour)
+        flags = dict(use_hands=self.use_hands, use_face=self.use_face,
+                     use_face_contour=self.use_face_contour)
+        # The native parser skips gender annotations: files carrying them
+        # take the Python reader (a substring probe).
+        native_ok = self.use_native_parser
+        if native_ok:
+            with open(matches[0], "rb") as f:
+                native_ok = b"gender" not in f.read()
+        if native_ok:
+            kp = Keypoints(keypoints=native.read_keypoints_native(matches[0],
+                                                                  **flags))
+        else:
+            kp = read_keypoints(matches[0], **flags)
         img = load_image(img_path) if self.load_images else None
         size = img.shape[:2] if img is not None else _jpeg_png_size(img_path)
         if size is None:

@@ -25,6 +25,7 @@ from smplifyx_torch.fitting.energy import (
     smplify_energy,
 )
 from smplifyx_torch.fitting.lbfgs import LBFGSConfig, minimize
+from smplifyx_torch.fitting.optimizers import make_optimizer, minimize_first_order
 from smplifyx_torch.fitting.params import (
     FitSettings,
     body_params_from_flat,
@@ -87,6 +88,21 @@ def _check_device(dev: torch.device, **tensors):
             raise ValueError(f"{name} lies on {t.device}, the fit runs on {dev}")
 
 
+def _first_order(optim_type: str):
+    """`minimize`'s signature over a first-order optimizer; an unknown name
+    raises ValueError.  The aux hooks go unused: with no line search there
+    is no broad phase to hoist, and fun runs its own in every evaluation
+    (the reference's semantics)."""
+    make_optimizer(optim_type, 1.0)
+
+    def run(fun, x, mask, cfg, aux_fn=None, aux_refresh_fn=None):
+        return minimize_first_order(
+            fun, x, make_optimizer(optim_type, cfg.lr), mask=mask,
+            max_iters=cfg.max_iters, ftol=cfg.ftol, gtol=cfg.gtol)
+
+    return run
+
+
 def fit_batch(
     model: SMPLXModel,
     settings: FitSettings,
@@ -113,15 +129,12 @@ def fit_batch(
     set and a collision_fn is given.  Every other stage runs the
     joints-only energy when a JointsModel is given.
     """
+    use_lbfgs = options.optim_type.lower() in ("lbfgs", "lbfgsls")
+    run_min = minimize if use_lbfgs else _first_order(options.optim_type)
     dev = resolve_device(device)
     _check_device(dev, x0=x0, gt_joints=frames.gt_joints,
                   lbs_weights=model.lbs_weights)
     full_f32_matmuls()
-    if options.optim_type.lower() not in ("lbfgs", "lbfgsls"):
-        raise NotImplementedError(
-            f"optim_type={options.optim_type!r}: the first-order optimizers "
-            "are not ported yet (ROADMAP queue 1 item 8)"
-        )
     B = x0.shape[0]
     num_stages = stage_weights.num_stages
     if coll_stage_mask is None:
@@ -155,7 +168,7 @@ def fit_batch(
 
     # ---- stage 0: camera
     if options.camera_stage:
-        cam_res = minimize(
+        cam_res = run_min(
             lambda x: camera_init_energy(x, settings, model, frames,
                                          decode_body, joint_map,
                                          joints_model=joints_model),
@@ -200,7 +213,8 @@ def fit_batch(
     for k in range(num_stages):
         w = stage_weights.stage(k)
         with_coll = coll_stage_mask[k]
-        hoist = with_coll and options.coll_broad_refresh == "iter"
+        hoist = (with_coll and use_lbfgs
+                 and options.coll_broad_refresh == "iter")
 
         def fun(z, aux=None, w=w, k=k, with_coll=with_coll):
             return smplify_energy(
@@ -222,8 +236,8 @@ def fit_batch(
             def aux_refresh_fn(z, aux):
                 return collision_fn.build_refresh(vertices_of(z), aux)
 
-        res = minimize(fun, x_cur, body_mask, options.lbfgs, aux_fn=aux_fn,
-                       aux_refresh_fn=aux_refresh_fn)
+        res = run_min(fun, x_cur, body_mask, options.lbfgs, aux_fn=aux_fn,
+                      aux_refresh_fn=aux_refresh_fn)
         reads += res.host_reads
         x_cur = res.x
         losses.append(res.f)

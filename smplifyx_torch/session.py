@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from smplifyx_torch.fitting.lbfgs import LBFGSConfig
+from smplifyx_torch.fitting.optimizers import make_optimizer
 from smplifyx_torch.fitting.params import FitSettings
 from smplifyx_torch.fitting.pipeline import FitOptions, FitResult, fit_batch
 from smplifyx_torch.fitting.prepare import _norm_prior, settings_from_config
@@ -151,10 +152,7 @@ def build_fit_session(cfg: Config, model=None, device=None) -> FitSession:
         raise NotImplementedError(
             f"camera_type={cfg.camera_type!r}: only 'persp' is supported")
     if cfg.optim_type.lower() not in ("lbfgs", "lbfgsls"):
-        raise NotImplementedError(
-            f"optim_type={cfg.optim_type!r}: the first-order optimizers are "
-            "not ported yet (ROADMAP queue 1 item 8)"
-        )
+        make_optimizer(cfg.optim_type, cfg.lr)   # an unknown name raises
 
     settings = settings_from_config(cfg)
 

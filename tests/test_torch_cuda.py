@@ -311,3 +311,63 @@ def test_procrustes_v2v_on_card_matches_cpu(card):
     scale = pred.abs().max().item()
     assert (got.cpu() - cpu).abs().max().item() <= 1e-5 * scale
     assert (got.mean(-1).cpu() - cpu.mean(-1)).abs().max().item() <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("name,lr", [("adam", 0.1), ("sgd", 0.02),
+                                     ("rmsprop", 0.02)])
+def test_first_order_optimizers_on_card_match_cpu(card, name, lr):
+    """20 masked first-order steps on a seeded quadratic, 64 lanes, on the
+    card and on the CPU: the same optax rules, within 1e-6 per unit of
+    scale (f32 products summed in another order)."""
+    from smplifyx_torch.fitting.optimizers import (make_optimizer,
+                                                   minimize_first_order)
+
+    full_f32_matmuls()
+    gen = torch.Generator().manual_seed(5)
+    B, D = 64, 12
+    A = torch.randn(D, D, generator=gen)
+    Q = A @ A.T + 2 * torch.eye(D)
+    b = torch.randn(B, D, generator=gen) * 3
+    x0 = torch.randn(B, D, generator=gen)
+    mask = (torch.arange(D) % 4 != 3).float()
+    out = []
+    for dev in ("cpu", card):
+        Qd, bd = Q.to(dev), b.to(dev)
+        res = minimize_first_order(
+            lambda x: 0.5 * ((x @ Qd) * x).sum(-1) - (x * bd).sum(-1),
+            x0.to(dev), make_optimizer(name, lr), mask=mask.to(dev),
+            max_iters=20, ftol=1e-2, gtol=1e-4)
+        out.append(res)
+    torch.cuda.synchronize()
+    cpu, got = out
+    assert got.x.device.type == "cuda"
+    scale = max(1.0, cpu.x.abs().max().item())
+    assert (got.x.cpu() - cpu.x).abs().max().item() <= 1e-6 * scale
+    assert torch.equal(got.n_iters.cpu(), cpu.n_iters)
+    assert torch.equal(got.x.cpu()[:, mask == 0], x0[:, mask == 0])
+
+
+def test_native_keypoint_parser_builds_and_reads(tmp_path):
+    """The host C++ parser builds on this machine (build/libkeypoints_torch.so)
+    and reads a JSON as the Python reader does."""
+    import json
+
+    import numpy as np
+
+    from smplifyx_torch.data import keypoints as tkp
+    from smplifyx_torch.data import native
+    from smplifyx_torch.ops import nvcc
+
+    report = nvcc.build(native.LIBRARY, force=True)
+    assert report[native.LIBRARY][0] > 0
+    rng = np.random.default_rng(0)
+    people = [{k: rng.uniform(0, 800, n * 3).tolist() for k, n in (
+        ("pose_keypoints_2d", 25), ("hand_left_keypoints_2d", 21),
+        ("hand_right_keypoints_2d", 21), ("face_keypoints_2d", 70))}
+        for _ in range(2)]
+    path = tmp_path / "a_keypoints.json"
+    path.write_text(json.dumps({"people": people}))
+    got = native.read_keypoints_native(str(path), True, True, True)
+    want = tkp.read_keypoints(str(path), True, True, True).keypoints
+    assert got.shape == (2, 135, 3)
+    assert np.array_equal(got, want)

@@ -122,13 +122,20 @@ def test_image_sizes_match_jax(tmp_path):
 
 
 def test_native_parser_is_not_ported(folder):
+    """The native parser is ported: each choice of `use_native_parser`
+    reads the same three records (tests/test_torch_blending.py holds the
+    parser itself against both readers)."""
     root, _ = folder
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkp.create_dataset(data_folder=str(root / "data"), use_native_parser=True)
-    for choice in (None, False):
+    reads = {}
+    for choice in (True, None, False):
         ds = tkp.create_dataset(data_folder=str(root / "data"),
                                 use_native_parser=choice)
-        assert len(list(ds)) == 3
+        assert ds.use_native_parser is (choice is not False)
+        reads[choice] = list(ds)
+        assert len(reads[choice]) == 3
+    for a, b, c in zip(*reads.values()):
+        _same_record(a, b)
+        _same_record(a, c)
     with pytest.raises(ValueError, match="format"):
         tkp.create_dataset(format="mpii", data_folder=str(root / "data"))
 
