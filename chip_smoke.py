@@ -36,10 +36,29 @@ parameters must be its bits.  The `first_order` phase fits the
 collision-on preset with adam at B=32 (a broad phase in every
 collision-stage evaluation, two row plans each) and short collision-off
 fits with sgd and rmsprop, each twice (bit-equal), below the energy at its
-start, with 4 lanes refitted on the CPU.  The `app` phase also reads its
+start, with 2 lanes refitted on the CPU.  The `app` phase also reads its
 JSONs through the native keypoint parser (`data/native.py`, built with the
 host compiler beside the kernels) and the Python reader: the same
 keypoints.
+
+The `parallel` phases drive `smplifyx_torch/parallel/mesh.py` on the one
+card, repeated in each mesh's device list: the vertex-sharded forward
+(1x2 mesh, B=256: two K1 launches, each block's K1 against its plain
+version, vertices and joints within 2e-5 m of the unsharded forward);
+two spawned processes building the stale kernel libraries at once; the
+data-parallel fit of 64 frames through `fit_batch_sharded`, collision_on's
+preset in one worker (1x1) and in two (2x1) and collision_off's in two,
+each run bit-equal per lane to `session.fit` in this process on its
+workers' blocks of frames, with each run's start-up and fit seconds and
+frames/s, beside session.fit on all 64 frames (a lane's result depends
+on its batch's size; collision off, the median within 1%); and the
+vertex-sharded collision-off fit (1x2, 8 frames, no joints model, within
+5% per lane).  The `oracle` phase holds the broad
+phase on the card at `make_collision_fn`'s defaults against the exact
+pair set of the ~21k-face posed-human proxy (`utils/proxy_mesh.py`), with
+2x headroom at every budget.  The `families` phase checks K1 at J=52 and
+J=24 and fits SMPL-H and SMPL at V=10475 through `build_fit_session`
+(collision off).
 
 After the collision-on, collision-off, first-order and app paths the
 `quality` phase holds the fit's meshes
@@ -133,10 +152,32 @@ FIRST_ORDER = {
     "rmsprop": dict(optim_type="rmsprop", lr=1e-3, maxiters=10,
                     interpenetration=False),
 }
-FIRST_ORDER_CPU_LANES = 4
+# Lanes of each first-order fit refitted on the CPU: 2, cut from 4 to
+# make room for the parallel, oracle and families phases (adam's CPU
+# refit took ~128 s per lane).
+FIRST_ORDER_CPU_LANES = 2
 # CPU refit of the collision-off first-order lanes: the median final loss
 # within 1% of the card's, every lane within 5%.
 FIRST_ORDER_MEDIAN_RTOL = 0.01
+
+# The parallel phases (parallel/mesh.py) on one card, repeated in the
+# device lists of their meshes: (a) the vertex-sharded forward at 256
+# lanes (the collision stages' batch), within the bound of JAX's
+# test_vertex_sharded_forward_matches; (b) the data-parallel fit of 64
+# frames (collision_on's preset in 1 and 2 workers, collision_off's in
+# 2), each run bit-equal to session.fit on its workers' blocks, and
+# collision off within 1% at the median of session.fit on all 64; (c)
+# the vertex-sharded collision-off fit of 8 frames, within 5% per lane.
+CARD = "cuda:0"
+SHARDED_FWD_BATCH = 256
+SHARD_TOL = 2e-5
+PARALLEL_FRAMES = 64
+SHARDED_FIT_BATCH = 8
+PARALLEL_LANE_RTOL = 0.05
+PARALLEL_MEDIAN_RTOL = 0.01
+# The families phase: SMPL-H with hands and SMPL without, at V=10475.
+FAMILIES = (("smplh", True), ("smpl", False))
+FAMILY_BATCH = 32
 
 # Data-sheet peaks (dense, no sparsity): FP32 on the CUDA cores, memory rate.
 PEAKS = {  # name fragment -> (FP32 FLOP/s, bytes/s)
@@ -1653,6 +1694,383 @@ def phase_first_order(name):
     return launches, (session, model, res, (cpu, cpu_session, cpu_model))
 
 
+# ---------------------------------------------------------------- parallel
+
+
+def phase_sharded_forward(model, peak):
+    """(a) The vertex-sharded forward on a 1x2 mesh of one card repeated:
+    vertices and joints against the unsharded forward within SHARD_TOL, one
+    K1 launch per block, each block's K1 against its plain version."""
+    import torch
+
+    from smplifyx_torch.models.forward import smplx_forward
+    from smplifyx_torch.parallel import make_mesh, shard_model
+    from smplifyx_torch.problem import ground_truth
+
+    B = SHARDED_FWD_BATCH
+    mesh = make_mesh(1, 2, devices=[CARD, CARD])
+    t0 = time.perf_counter()
+    sharded = shard_model(model, mesh)[0]
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    params = ground_truth(B, CARD)
+    with torch.no_grad():
+        plain = smplx_forward(model, params)
+        reset_counts()
+        out = smplx_forward(sharded, params)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    errs = {name: (getattr(out, name) - getattr(plain, name)).abs().max().item()
+            for name in ("vertices", "joints")}
+    sizes = [int(blk.v_template.shape[0]) for blk in sharded.blocks]
+    emit({"phase": "parallel_forward", "mesh": mesh.shape, "B": B,
+          "V": model.num_verts, "block_vertices": sizes, "shard_s": shard_s,
+          "max_abs_err_m": errs, "bound_m": SHARD_TOL, "launches": launches})
+    rows = [check_lbs(f"block{i}", blk.lbs_weights, blk.lbs_plan, B, peak,
+                      10 + i) for i, blk in enumerate(sharded.blocks)]
+    if not max(errs.values()) <= SHARD_TOL:
+        raise AssertionError(f"the vertex-sharded forward is {errs} m from "
+                             f"the unsharded one > {SHARD_TOL}")
+    if launches["lbs"] != 2 or launches["lbs_by_rows"] != {
+            s: sizes.count(s) for s in sizes}:
+        raise AssertionError(f"the sharded forward launched K1 {launches}")
+    return launches, rows
+
+
+def _spawned_build(queue):
+    """A spawned process at a worker's start: build the kernel libraries
+    if stale, load them, report {source: compile seconds}."""
+    from smplifyx_torch.ops import gather, lbs, nvcc
+
+    report = nvcc.build(*KERNEL_SOURCES)
+    lbs._load()
+    gather._load()
+    queue.put((os.getpid(), {k: s for k, (s, _) in report.items()}))
+
+
+def phase_cold_build():
+    """Two spawned processes find the kernel libraries stale (as on a cold
+    build/) and build and load them at once, as two workers of
+    fit_batch_sharded would: both must load, the libraries end fresh,
+    and no temporary file is left."""
+    import multiprocessing
+
+    from smplifyx_torch.ops import nvcc
+
+    for name in KERNEL_SOURCES:
+        os.utime(nvcc.library(name), (0, 0))
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_spawned_build, args=(queue,))
+             for _ in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        out = [queue.get(timeout=600) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+    wall = time.perf_counter() - t0
+    fresh = {name: not nvcc._stale(name) for name in KERNEL_SOURCES}
+    leftovers = [p.name for p in nvcc.BUILD_DIR.glob("*.tmp.so")]
+    emit({"phase": "parallel_cold_build", "wall_s": wall,
+          "compile_s": {str(pid): s for pid, s in out},
+          "compiled_in_both": all(all(s > 0 for s in r.values())
+                                  for _, r in out),
+          "fresh": fresh, "tmp_left": leftovers,
+          "exit_codes": [p.exitcode for p in procs]})
+    if not (all(fresh.values()) and not leftovers
+            and [p.exitcode for p in procs] == [0, 0]):
+        raise AssertionError("two processes building the kernels at once "
+                             "left them stale or broken")
+
+
+def _lane_diffs(res, ref):
+    """Per lane relative loss differences, the relative difference of the
+    median losses, and the lanes equal to the bit (x and loss)."""
+    import torch
+
+    rel = (res.loss - ref.loss).abs() / ref.loss.abs()
+    med = abs(float(res.loss.median()) - float(ref.loss.median())) \
+        / abs(float(ref.loss.median()))
+    bits = [bool(torch.equal(res.x[i], ref.x[i])
+                 and torch.equal(res.loss[i], ref.loss[i]))
+            for i in range(ref.loss.shape[0])]
+    return rel, med, sum(bits)
+
+
+def _diff_row(res, ref):
+    rel, med, bits = _lane_diffs(res, ref)
+    return {"bit_equal_lanes": bits, "max_rel_diff": float(rel.max()),
+            "lane_median_rel_diff": float(rel.median()),
+            "median_loss_rel_diff": med,
+            "lanes_within_5pct": int((rel <= PARALLEL_LANE_RTOL).sum())}
+
+
+def _run_row(label, run, B):
+    launches = {k: sum(r["launches"][k] for r in run["rows"])
+                for k in run["rows"][0]["launches"]}
+    return {"mesh": label, "B": B, "workers": len(run["rows"]),
+            "startup_s": run["startup_s"], "fit_window_s": run["fit_window_s"],
+            "wall_s": run["wall_s"], "frames_per_s": B / run["fit_window_s"],
+            "rows": run["rows"], "launches": launches}
+
+
+def phase_data_parallel(label, session, model, jm, frames, x0, meshes):
+    """(b) The path's preset on PARALLEL_FRAMES frames through
+    fit_batch_sharded on each of `meshes` (1x1: one worker; 2x1: two
+    workers on one card repeated), held per lane against fits in this
+    process: each run bit-equal to session.fit on its workers' blocks of
+    frames (one block of 64 for 1x1, two of 32 for 2x1).  Beside that,
+    each run against session.fit on all 64 frames: a lane's result
+    depends on the size of the batch it is fitted in (the matrix products'
+    kernels, and so their rounding, change with the number of lanes), and
+    L-BFGS carries that rounding to other iterates; with the collision
+    term its 1/sigma = 1e4 takes lanes to other minima.  So a lane's
+    difference is reported, not held; collision off, the median loss must
+    stay within PARALLEL_MEDIAN_RTOL."""
+    import types
+
+    import torch
+
+    from smplifyx_torch.parallel import fit_batch_sharded, make_mesh
+
+    B = PARALLEL_FRAMES
+    frames = frames.map(lambda a: a[:B].contiguous())
+    x0 = x0[:B].contiguous()
+    kwargs = dict(gmm=session.gmm, edge_idxs=session.edge_idxs,
+                  joints_model=jm, coll_stage_mask=session.coll_stage_mask,
+                  lhand_gmm=session.lhand_gmm, rhand_gmm=session.rhand_gmm,
+                  collision_fn=session.collision_for(model))
+    t0 = time.perf_counter()
+    ref = session.fit(model, jm, frames, x0)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    by_blocks = {1: ref}
+    runs, launches = [], {}
+    for mesh_label, devices in meshes:
+        n = len(devices)
+        if n not in by_blocks:
+            b = B // n
+            parts = [session.fit(model, jm,
+                                 frames.map(lambda a, r=r: a[r * b:(r + 1) * b]),
+                                 x0[r * b:(r + 1) * b]) for r in range(n)]
+            by_blocks[n] = types.SimpleNamespace(
+                loss=torch.cat([p.loss for p in parts]),
+                x=torch.cat([p.x for p in parts]))
+        res = fit_batch_sharded(
+            make_mesh(n, 1, devices=devices), model, session.settings,
+            session.options, session.schedule, frames, x0,
+            session.decode_body, session.joint_map, **kwargs)
+        runs.append({**_run_row(mesh_label, fit_batch_sharded.last_run, B),
+                     "loss_median": float(res.loss.median()),
+                     "vs_blocks_in_process": _diff_row(res, by_blocks[n]),
+                     "vs_batch_in_process": _diff_row(res, ref)})
+        for k, v in runs[-1]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    blocks_vs_batch = {n: _diff_row(r, ref) for n, r in by_blocks.items()
+                       if n > 1}
+    emit({"phase": "parallel_fit", "path": label, "B": B,
+          "V": model.num_verts, "card": torch.cuda.get_device_name(0),
+          "in_process_fit_s": ref_s, "in_process_frames_per_s": B / ref_s,
+          "in_process_loss_median": float(ref.loss.median()),
+          "in_process_blocks_vs_batch": blocks_vs_batch, "runs": runs})
+    for run in runs:
+        if run["vs_blocks_in_process"]["bit_equal_lanes"] != B:
+            raise AssertionError(
+                f"the {label} {run['mesh']} workers' fit is bit-equal to "
+                f"session.fit on the same blocks in "
+                f"{run['vs_blocks_in_process']['bit_equal_lanes']} of {B} lanes")
+        needs = (("lbs", "gather", "scatter", "scatter_join")
+                 if kwargs["collision_fn"] is not None else ("lbs",))
+        for name in needs:
+            if any(r["launches"][name] <= 0 for r in run["rows"]):
+                raise AssertionError(f"a {run['mesh']} worker never launched "
+                                     f"the {name} kernel")
+        if any(r["launches"]["lbs_plan_builds"] for r in run["rows"]):
+            raise AssertionError("a worker's fit built skinning plans")
+        batch = run["vs_batch_in_process"]
+        if kwargs["collision_fn"] is None and not (
+                batch["median_loss_rel_diff"] <= PARALLEL_MEDIAN_RTOL):
+            raise AssertionError(
+                f"the {label} {run['mesh']} fit's median loss is "
+                f"{batch['median_loss_rel_diff']:.3g} from session.fit's on "
+                "the whole batch")
+    return launches
+
+
+def phase_sharded_fit(session, model, frames, x0):
+    """(c) shard_model_axis=True on a 1x2 mesh of one card repeated, the
+    collision-off preset on SHARDED_FIT_BATCH frames with no joints model,
+    so every evaluation runs the vertex-sharded forward: each lane's final
+    loss within PARALLEL_LANE_RTOL of fit_batch on the unsharded model."""
+    import torch
+
+    from smplifyx_torch.fitting.pipeline import fit_batch
+    from smplifyx_torch.parallel import fit_batch_sharded, make_mesh
+
+    B = SHARDED_FIT_BATCH
+    args = (session.settings, session.options, session.schedule,
+            frames.map(lambda a: a[:B].contiguous()), x0[:B].contiguous(),
+            session.decode_body, session.joint_map)
+    kwargs = dict(gmm=session.gmm, edge_idxs=session.edge_idxs,
+                  lhand_gmm=session.lhand_gmm, rhand_gmm=session.rhand_gmm)
+    t0 = time.perf_counter()
+    ref = fit_batch(model, *args, device=CARD, **kwargs)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    res = fit_batch_sharded(make_mesh(1, 2, devices=[CARD, CARD]), model,
+                            *args, shard_model_axis=True, **kwargs)
+    row = {**_run_row("1x2", fit_batch_sharded.last_run, B),
+           **_diff_row(res, ref)}
+    emit({"phase": "parallel_sharded_fit", "path": "collision_off",
+          "joints_model": None, "V": model.num_verts,
+          "in_process_fit_s": ref_s, **row})
+    if not row["max_rel_diff"] <= PARALLEL_LANE_RTOL:
+        raise AssertionError(f"the vertex-sharded fit is {row['max_rel_diff']:.3g}"
+                             " from the unsharded one (worst lane)")
+    lbs = row["launches"]["lbs"]
+    if not (lbs > 0 and lbs % 2 == 0):
+        raise AssertionError(f"the vertex-sharded fit launched K1 {lbs} times")
+    return row["launches"]
+
+
+# ---------------------------------------------------------------- oracle
+
+
+def phase_oracle():
+    """The port's broad phase on the card at make_collision_fn's defaults
+    against the exact all-pairs oracle on the ~21k-face posed-human proxy
+    (utils/proxy_mesh.py): the same pair set, more than 1,000 pairs, fewer
+    than 0.75 of max_pairs, >= 2x headroom at every level."""
+    import torch
+
+    from smplifyx_torch.ops.collision import make_collision_fn
+    from smplifyx_torch.utils.proxy_mesh import (
+        build_posed_human,
+        oracle_overlap_pairs,
+    )
+
+    verts, faces, segm, parents = build_posed_human(scale_faces=1.25)
+    t0 = time.perf_counter()
+    oi, oj = oracle_overlap_pairs(verts, faces, segm, parents)
+    oracle_s = time.perf_counter() - t0
+    oracle = set(zip(oi.tolist(), oj.tolist()))
+    fn = make_collision_fn(torch.as_tensor(faces, device=CARD), segm=segm,
+                           parents=parents)
+    v = torch.as_tensor(verts, device=CARD)[None]
+    fn.candidate_pairs(v)                               # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ia, ib, valid = fn.candidate_pairs(v)
+    torch.cuda.synchronize()
+    broad_s = time.perf_counter() - t0
+    keep = valid[0].cpu().numpy()
+    a, b = ia[0].cpu().numpy()[keep], ib[0].cpu().numpy()[keep]
+    found = set(zip(np.minimum(a, b).tolist(), np.maximum(a, b).tolist()))
+    sat = {k: (int(c[0]), budget) for k, (c, budget) in fn.saturation(v).items()}
+    emit({"phase": "oracle", "faces": len(faces), "oracle_pairs": len(oracle),
+          "found_pairs": len(found), "missing": len(oracle - found),
+          "spurious": len(found - oracle), "max_pairs": fn.P,
+          "saturation": {k: {"count": c, "budget": b} for k, (c, b) in sat.items()},
+          "oracle_s_host": oracle_s, "broad_phase_s": broad_s})
+    if not (19000 < len(faces) < 23000 and len(oracle) > 1000):
+        raise AssertionError(f"the proxy has {len(faces)} faces and "
+                             f"{len(oracle)} contacts")
+    if found != oracle:
+        raise AssertionError(f"the broad phase lost {len(oracle - found)} and "
+                             f"invented {len(found - oracle)} pairs")
+    if not len(oracle) < 0.75 * 4096:
+        raise AssertionError(f"{len(oracle)} pairs: budget margin too thin")
+    for level, (count, budget) in sat.items():
+        if not 2 * count <= budget:
+            raise AssertionError(f"level {level}: {count} of {budget}, less "
+                                 "than 2x headroom")
+
+
+# ---------------------------------------------------------------- families
+
+
+def phase_families(peak):
+    """SMPL-H and SMPL at V=10475: K1 on each family's skinning weights
+    (J=52, J=24) against its plain version, then a collision-off staged
+    fit of FAMILY_BATCH frames through build_fit_session (the combined
+    preset with model_type smplh or smpl, use_face and interpenetration
+    off, SMPL without hands) and recover_outputs: finite losses, the
+    median below the last stage's energy at the fit's start, every lane's
+    reprojection below x0's, finite meshes."""
+    import torch
+
+    from smplifyx_torch.fitting.pipeline import recover_outputs
+    from smplifyx_torch.models.sparse import build_joints_model
+    from smplifyx_torch.problem import (
+        SLICE_OVERRIDES,
+        SLICE_PRESET,
+        SLICE_VERTS,
+        family_problem,
+    )
+    from smplifyx_torch.session import build_fit_session
+    from smplifyx_torch.utils.config import load_config
+
+    lbs_rows, total = [], {}
+    for model_type, use_hands in FAMILIES:
+        cfg = load_config(SLICE_PRESET, **SLICE_OVERRIDES,
+                          model_type=model_type, use_hands=use_hands,
+                          use_face=False, interpenetration=False,
+                          synthetic_num_verts=SLICE_VERTS)
+        session = build_fit_session(cfg, device=CARD)
+        model = session.get_model("neutral")
+        jm = build_joints_model(model)
+        frames, x0 = family_problem(model, session.settings, session.joint_map,
+                                    FAMILY_BATCH)
+        lbs_rows.append(check_lbs(f"{model_type}_full_mesh", model.lbs_weights,
+                                  model.lbs_plan, 2 * FAMILY_BATCH, peak, 20))
+        start = start_loss(session, model, jm, frames, x0)
+        reproj0, _ = reprojection_px(session, model, frames, x0)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = session.fit(model, jm, frames, x0)
+        out, _, _ = recover_outputs(model, session.settings, res.x,
+                                    session.decode_body, session.joint_map,
+                                    device=CARD)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_counts()
+        reproj, _ = reprojection_px(session, model, frames, res.x)
+        for k in ("lbs", "gather", "scatter"):
+            total[k] = total.get(k, 0) + launches[k]
+        emit({"phase": "family_fit", "model_type": model_type,
+              "J": model.num_joints, "V": model.num_verts, "B": FAMILY_BATCH,
+              "use_hands": use_hands, "fit_s": fit_s,
+              "frames_per_s": FAMILY_BATCH / fit_s, "launches": launches,
+              "start_loss_median": float(start.median()),
+              "loss_median": float(res.loss.median()),
+              "lanes_below_start": int((res.loss < start).sum()),
+              "stage_loss_median": res.stage_losses.median(1).values.tolist(),
+              "reproj_px_median": float(reproj.median()),
+              "reproj_px_max": float(reproj.max()),
+              "reproj_px_x0_median": float(reproj0.median()),
+              "host_reads": res.host_reads})
+        losses = torch.cat([res.loss[None], res.camera_loss[None],
+                            res.stage_losses])
+        if not (bool(torch.isfinite(losses).all())
+                and float(res.loss.median()) < float(start.median())
+                and bool((reproj < reproj0).all())):
+            raise AssertionError(f"the {model_type} fit is not finite, its "
+                                 "median not below its start or a lane's "
+                                 "reprojection not below x0's")
+        if tuple(out.vertices.shape) != (FAMILY_BATCH, model.num_verts, 3) \
+                or not bool(torch.isfinite(out.vertices).all()):
+            raise AssertionError(f"the {model_type} mesh is wrong")
+        if launches["lbs_by_rows"].get(model.num_verts, 0) <= 0:
+            raise AssertionError(f"the {model_type} run never skinned the "
+                                 "full mesh with K1")
+    return total, lbs_rows
+
+
 def kernel_entry(name, source, replaces, launches, rows, shape_keys, **extra):
     main = rows[0]
     entry = {
@@ -1717,6 +2135,7 @@ def main() -> int:
 
     # ---- the serve path: FitService over the collision-on session
     serve = phase_serve(session, model, jm, frames)
+    collision_on = (session, model, jm, frames, x0)
 
     # ---- the collision-off path of the first slice
     off = dict(interpenetration=False)
@@ -1728,6 +2147,26 @@ def main() -> int:
                                     frames, x0, **off)
     phase_quality("collision_off", model, session.settings,
                   session.decode_body, res.x, res.loss, lane_ref)
+
+    # ---- the parallel path (parallel/mesh.py) on one card: the
+    # vertex-sharded forward, kernel builds racing in two processes, the
+    # data-parallel collision-on fit in 1 and 2 workers, the vertex-sharded
+    # collision-off fit
+    par_forward, block_rows = phase_sharded_forward(collision_on[1], peak)
+    phase_cold_build()
+    par_on = phase_data_parallel("collision_on", *collision_on,
+                                 meshes=(("1x1", [CARD]),
+                                         ("2x1", [CARD, CARD])))
+    par_off = phase_data_parallel("collision_off", session, model, jm,
+                                  frames, x0, meshes=(("2x1", [CARD, CARD]),))
+    par_sharded = phase_sharded_fit(session, model, frames, x0)
+    parallel = {k: par_forward[k] + par_on[k] + par_off[k] + par_sharded[k]
+                for k in ("lbs", "gather", "scatter")}
+    del collision_on
+
+    # ---- the full-scale oracle audit of the broad phase; SMPL-H and SMPL
+    phase_oracle()
+    families, family_rows = phase_families(peak)
 
     # ---- the first-order path: adam with the collision term (a broad
     # phase per evaluation), then short collision-off sgd and rmsprop fits
@@ -1745,13 +2184,15 @@ def main() -> int:
     # ---- the viz path: --visualize true, overlays, live viewer
     viz = phase_viz()
 
+    lbs_rows += block_rows + family_rows
     for r in lbs_rows:
         r["max_abs_err"] = r["fwd_max_abs_err"]
 
     def by_path(name):
         return {"app": app[name], "collision_on": launches[name],
                 "viz": viz[name], "serve": serve[name],
-                "first_order": first_order[name]}
+                "first_order": first_order[name],
+                "parallel": parallel[name], "families": families[name]}
 
     emit({"kernels": [
         kernel_entry("lbs", "smplifyx_torch/csrc/lbs.cu",

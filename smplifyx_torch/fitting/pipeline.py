@@ -132,8 +132,7 @@ def fit_batch(
     use_lbfgs = options.optim_type.lower() in ("lbfgs", "lbfgsls")
     run_min = minimize if use_lbfgs else _first_order(options.optim_type)
     dev = resolve_device(device)
-    _check_device(dev, x0=x0, gt_joints=frames.gt_joints,
-                  lbs_weights=model.lbs_weights)
+    _check_device(dev, x0=x0, gt_joints=frames.gt_joints, faces=model.faces)
     full_f32_matmuls()
     B = x0.shape[0]
     num_stages = stage_weights.num_stages
@@ -288,7 +287,7 @@ def recover_outputs(
     """Final forward pass on fitted params: (SMPLXOutput, BodyParams, cam_t).
     The mesh is skinned by kernel K1 on the card."""
     dev = resolve_device(device)
-    _check_device(dev, x=x, lbs_weights=model.lbs_weights)
+    _check_device(dev, x=x, faces=model.faces)
     full_f32_matmuls()
     with torch.no_grad():
         params, cam_t, _ = body_params_from_flat(settings, x, decode_body)

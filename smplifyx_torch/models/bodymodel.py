@@ -96,6 +96,13 @@ class SMPLXModel(TensorFields):
         check_plan(self.lbs_weights, self.lbs_plan, "SMPLXModel")
 
     @property
+    def blocks(self) -> tuple:
+        """The vertex blocks the forward runs (`smplx_forward`): the whole
+        model; a vertex-sharded model (parallel/mesh.py) has one per
+        device."""
+        return (self,)
+
+    @property
     def num_betas(self) -> int:
         return self.shapedirs.shape[-1]
 

@@ -189,9 +189,10 @@ def smplx_forward(
     joint_map: Optional[torch.Tensor] = None,
     return_verts: bool = True,
 ) -> SMPLXOutput:
-    """Batched SMPL-X forward; all params [B, ...]."""
+    """Batched SMPL-X forward; all params [B, ...].  `model` is an
+    SMPLXModel or a vertex-sharded model (parallel/mesh.py::shard_model),
+    whose outputs lie on the parameters' device."""
     B = params.global_orient.shape[0]
-    V = model.num_verts
     J = model.num_joints
     full_pose = _full_pose(
         params, J, (model.left_hand_components, model.right_hand_components),
@@ -199,15 +200,27 @@ def smplx_forward(
     )
 
     shape_coeffs = torch.cat([params.betas, params.expression], dim=-1)
-    shape_dirs = torch.cat([model.shapedirs, model.exprdirs], dim=-1)
-    v_shaped = model.v_template + torch.einsum(
-        "bk,vck->bvc", shape_coeffs, shape_dirs)
-    joints_rest = torch.einsum("jv,bvc->bjc", model.J_regressor, v_shaped)
-
     rot_mats = batch_rodrigues(full_pose.reshape(B, J, 3))
     eye = torch.eye(3, dtype=rot_mats.dtype, device=rot_mats.device)
     pose_feature = (rot_mats[:, 1:] - eye).reshape(B, (J - 1) * 9)
-    v_posed = v_shaped + (pose_feature @ model.posedirs).reshape(B, V, 3)
+
+    # One vertex block per device (parallel/mesh.py::shard_model; an
+    # unsharded model is its own only block): shape and pose blends and
+    # skinning run where the block lives; the rest joints are the blocks'
+    # partial regressions added in block order, and the skinned blocks are
+    # joined, on the parameters' device.
+    lead = rot_mats.device
+    joints_rest, v_posed = None, []
+    for blk in model.blocks:
+        dev = blk.v_template.device
+        shape_dirs = torch.cat([blk.shapedirs, blk.exprdirs], dim=-1)
+        v_shaped = blk.v_template + torch.einsum(
+            "bk,vck->bvc", shape_coeffs.to(dev), shape_dirs)
+        part = torch.einsum("jv,bvc->bjc", blk.J_regressor, v_shaped).to(lead)
+        joints_rest = part if joints_rest is None else joints_rest + part
+        if return_verts:
+            v_posed.append(v_shaped + (pose_feature.to(dev) @ blk.posedirs)
+                           .reshape(B, v_shaped.shape[1], 3))
 
     posed_joints, A = _rigid_transform_chain(rot_mats, joints_rest,
                                              model.parents)
@@ -215,8 +228,11 @@ def smplx_forward(
     vertices = None
     joints_out = posed_joints
     if return_verts:
-        vertices = lbs_apply(model.lbs_weights, A.reshape(B, J, 16), v_posed,
-                             model.lbs_plan)
+        A16 = A.reshape(B, J, 16)
+        skinned = [lbs_apply(blk.lbs_weights, A16.to(vp.device), vp,
+                             blk.lbs_plan).to(lead)
+                   for blk, vp in zip(model.blocks, v_posed)]
+        vertices = skinned[0] if len(skinned) == 1 else torch.cat(skinned, 1)
         parts = [posed_joints, vertices[:, model.extra_joint_vids]]
         if model.lmk_faces_idx.shape[0] > 0:
             tri = vertices[:, model.faces[model.lmk_faces_idx]]  # [B, 51, 3, 3]

@@ -30,6 +30,7 @@ indexes, as the JAX package does on the CPU.
 
 from __future__ import annotations
 
+import copy
 import pickle
 from typing import NamedTuple, Optional, Sequence
 
@@ -275,6 +276,16 @@ class CollisionFn:
                 device=self.device)
         else:
             self.segm = self.parents = None
+
+    def to(self, device) -> "CollisionFn":
+        """A copy of the term with its tables on `device` (how a worker of
+        parallel/mesh.py::fit_batch_sharded takes it to its card)."""
+        out = copy.copy(self)
+        out.faces = self.faces.to(device)
+        out.device = out.faces.device
+        if self.segm is not None:
+            out.segm, out.parents = self.segm.to(device), self.parents.to(device)
+        return out
 
     # ---- broad phase ---------------------------------------------------
 

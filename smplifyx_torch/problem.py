@@ -179,6 +179,45 @@ def build_problem(B: int, V: int = 10475, smooth: bool = False,
     return model, settings, frames, x0, joint_map
 
 
+def family_problem(model, settings: FitSettings, joint_map: torch.Tensor,
+                   B: int, seed: int = 0):
+    """(frames, x0) of B synthetic frames for a model of any family (SMPL-X,
+    SMPL-H or SMPL), on the model's device: the inputs of the JAX
+    package's family fits (tests/test_model_families.py::_fit_family).
+    Ground-truth body poses from `default_rng(seed)` (settings.body_pose_dof
+    of them), the camera 4 m away (focal 1000, centre (320, 240)), every
+    keypoint of `joint_map` seen with confidence 1."""
+    dev = model.faces.device
+    dof, K = settings.body_pose_dof, joint_map.shape[0]
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    rng = np.random.default_rng(seed)
+    gt = dataclasses.replace(BodyParams.zeros(B, device=dev),
+                             body_pose=t(rng.normal(0, 0.1, (B, dof))))
+    focal = t(np.full((B, 2), 1000.0))
+    center = t(np.broadcast_to(np.asarray([320.0, 240.0]), (B, 2)))
+    with torch.no_grad():
+        joints = smplx_forward(model, gt, joint_map=joint_map,
+                               use_face_contour=False).joints
+        cam = CameraParams(torch.eye(3, device=dev).expand(B, 3, 3),
+                           t(np.tile([[0.0, 0.0, 4.0]], (B, 1))), focal, center)
+        gt2d = project_points(cam, joints)
+    frames = FrameData(
+        gt_joints=gt2d, conf=t(np.ones((B, K))), joint_weights=t(np.ones((B, K))),
+        focal=focal, center=center, data_weight=t(np.full((B,), 1000.0 / 480)),
+        init_joints_mask=t(np.isin(np.arange(K), INIT_JOINTS)
+                           .astype(np.float32)[None].repeat(B, 0)),
+        trans_estimation=t(np.zeros((B, 3))),
+        depth_loss_weight=t(np.full((B,), 1e2)),
+        regression_body=t(np.zeros((B, dof))),
+    )
+    z3 = t(np.zeros((B, 3)))
+    x0 = pack(settings, cam_t=z3, global_orient=z3, body=t(np.zeros((B, dof))))
+    return frames, x0
+
+
 def slice_model(num_verts: int = SLICE_VERTS, device="cuda"):
     """`smooth_synthetic_model(num_verts, seed=0)` with each face rebuilt
     from its first vertex and that vertex's two nearest rest-pose

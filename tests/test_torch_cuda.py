@@ -51,7 +51,10 @@ def _full_plan(W):
 # multiple with a single lane, and other widths.
 LBS_SHAPES = [(256, 10475, 55, 4), (128, 10475, 55, 4), (256, 224, 55, 4),
               (3, 500, 55, None), (1, 97, 55, 4), (5, 129, 24, None),
-              (1, 1, 64, None), (4, 300, 55, 12)]
+              (1, 1, 64, None), (4, 300, 55, 12),
+              # SMPL-H and SMPL at full width, and a block of a
+              # vertex-sharded SMPL-X (parallel/mesh.py::shard_model)
+              (64, 10475, 52, 4), (64, 10475, 24, 4), (256, 5238, 55, 4)]
 
 
 @pytest.mark.parametrize("B,V,J,nnz", LBS_SHAPES)
@@ -371,3 +374,33 @@ def test_native_keypoint_parser_builds_and_reads(tmp_path):
     want = tkp.read_keypoints(str(path), True, True, True).keypoints
     assert got.shape == (2, 135, 3)
     assert np.array_equal(got, want)
+
+
+def test_vertex_sharded_forward_on_card_matches_unsharded(card):
+    """Two vertex blocks on the card (parallel/mesh.py::shard_model): one
+    K1 launch per block, vertices and joints within 2e-5 m of the
+    unsharded forward, the parameters' gradient too."""
+    from smplifyx_torch.models.bodymodel import synthetic_model
+    from smplifyx_torch.models.forward import smplx_forward
+    from smplifyx_torch.parallel import make_mesh, shard_model
+    from smplifyx_torch.problem import ground_truth
+
+    full_f32_matmuls()
+    model = synthetic_model(num_verts=10475, seed=0, device=card)
+    sharded = shard_model(model, make_mesh(1, 2, devices=[card, card]))[0]
+    outs, grads = [], []
+    for m in (model, sharded):
+        params = ground_truth(8, card)
+        params.body_pose.requires_grad_(True)
+        before = tlbs.lbs_apply.launches
+        out = smplx_forward(m, params)
+        if m is sharded:
+            assert tlbs.lbs_apply.launches - before == 2
+        (out.vertices.square().sum() + out.joints.sum()).backward()
+        outs.append(out)
+        grads.append(params.body_pose.grad)
+    for name in ("vertices", "joints"):
+        err = (getattr(outs[0], name) - getattr(outs[1], name)).abs().max()
+        assert float(err) <= 2e-5, name
+    scale = max(1.0, float(grads[0].abs().max()))
+    assert float((grads[0] - grads[1]).abs().max()) / scale <= 1e-4
