@@ -53,7 +53,18 @@ workers' blocks of frames, with each run's start-up and fit seconds and
 frames/s, beside session.fit on all 64 frames (a lane's result depends
 on its batch's size; collision off, the median within 1%); and the
 vertex-sharded collision-off fit (1x2, 8 frames, no joints model, within
-5% per lane).  The `oracle` phase holds the broad
+5% per lane).  The `multihost` phases drive
+`smplifyx_torch/parallel/multihost.py` on the one card: the dry run's
+command (`python -m smplifyx_torch.parallel.multihost 2 1`, two ranks
+over gloo on 127.0.0.1, their GLOBAL_LOSS lines the same bits), then
+collision_on's preset on the same 64 frames in two ranks, fresh
+interpreters that each build the problem from the seed, hold its digest
+to this process's, fit their 32 rows through `fit_batch_multihost` and
+gather: the gathered loss and x the same bits in both ranks and, per
+lane, the bits of session.fit on the same two 32-frame blocks, K1, K2 and
+K3 launched in each rank, no skinning plan built; per rank the start-up,
+problem build, fit and gather times, the fit window and frames/s.  The
+`oracle` phase holds the broad
 phase on the card at `make_collision_fn`'s defaults against the exact
 pair set of the ~21k-face posed-human proxy (`utils/proxy_mesh.py`), with
 2x headroom at every budget.  The `families` phase checks K1 at J=52 and
@@ -175,6 +186,12 @@ PARALLEL_FRAMES = 64
 SHARDED_FIT_BATCH = 8
 PARALLEL_LANE_RTOL = 0.05
 PARALLEL_MEDIAN_RTOL = 0.01
+# The multihost phase (parallel/multihost.py): (a) the dry run's command
+# at 2 ranks x 1 device on the card; (b) collision_on's preset on the
+# PARALLEL_FRAMES frames of phase_data_parallel, MULTIHOST_RANKS ranks on
+# one card, each rank's lanes the bits of session.fit on its block.
+MULTIHOST_RANKS = 2
+MULTIHOST_TIMEOUT_S = 600
 # The families phase: SMPL-H with hands and SMPL without, at V=10475.
 FAMILIES = (("smplh", True), ("smpl", False))
 FAMILY_BATCH = 32
@@ -301,17 +318,22 @@ def time_ms(fn, reps=25, warmup=3):
     raise RuntimeError("the spin kernel never outlasted the enqueue")
 
 
+def nvidia_smi():
+    """The first card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: this script "
                            "runs the port on a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
@@ -1831,7 +1853,9 @@ def phase_data_parallel(label, session, model, jm, frames, x0, meshes):
     L-BFGS carries that rounding to other iterates; with the collision
     term its 1/sigma = 1e4 takes lanes to other minima.  So a lane's
     difference is reported, not held; collision off, the median loss must
-    stay within PARALLEL_MEDIAN_RTOL."""
+    stay within PARALLEL_MEDIAN_RTOL.  Returns the launches and the
+    in-process fits by block count ({n: loss and x of session.fit on n
+    blocks, joined})."""
     import types
 
     import torch
@@ -1899,7 +1923,7 @@ def phase_data_parallel(label, session, model, jm, frames, x0, meshes):
                 f"the {label} {run['mesh']} fit's median loss is "
                 f"{batch['median_loss_rel_diff']:.3g} from session.fit's on "
                 "the whole batch")
-    return launches
+    return launches, by_blocks
 
 
 def phase_sharded_fit(session, model, frames, x0):
@@ -1936,6 +1960,155 @@ def phase_sharded_fit(session, model, frames, x0):
     if not (lbs > 0 and lbs % 2 == 0):
         raise AssertionError(f"the vertex-sharded fit launched K1 {lbs} times")
     return row["launches"]
+
+
+# ---------------------------------------------------------------- multihost
+
+
+def multihost_rank(argv) -> int:
+    """One rank of the multihost phase (b), a fresh interpreter started by
+    `launch_ranks`: rendezvous, build collision_on's problem from the seed
+    (`build_slice`, as `setup` does), keep this rank's rows of the first
+    PARALLEL_FRAMES frames, hold the model's and the rows' digests to the
+    caller's, fit through `fit_batch_multihost` on the card, save the
+    gathered loss and x under --out and print one MULTIHOST_RANK line."""
+    import argparse
+
+    import torch
+
+    from smplifyx_torch.parallel import multihost as mh
+    from smplifyx_torch.problem import build_slice
+
+    p = argparse.ArgumentParser(parents=[mh.rank_parser()])
+    p.add_argument("--model-digest", required=True)
+    p.add_argument("--rows-digests", required=True,
+                   help="each rank's rows' digest, comma-separated")
+    p.add_argument("--out", required=True)
+    args = p.parse_args(argv)
+    torch.cuda.set_device(CARD)
+    mh.initialize(args.coordinator, args.num_processes, args.process_id,
+                  args.initialization_timeout)
+    try:
+        init_done = time.time()
+        t0 = time.perf_counter()
+        session, model, jm, frames, x0 = build_slice(device=CARD)
+        torch.cuda.synchronize()
+        problem_s = time.perf_counter() - t0
+        lo, hi = mh.process_rows(PARALLEL_FRAMES)
+        rows, rows_x0 = frames.map(lambda a: a[lo:hi]), x0[lo:hi]
+        digests = {"model_digest": mh.digest(model, jm),
+                   "rows_digest": mh.digest(rows, rows_x0)}
+        want = {"model_digest": args.model_digest,
+                "rows_digest": args.rows_digests.split(",")[
+                    mh.process_index()]}
+        if digests != want:
+            raise AssertionError(f"rank {mh.process_index()}'s inputs differ "
+                                 f"from the caller's: {digests} against {want}")
+        res = mh.fit_batch_multihost(
+            model, session.settings, session.options, session.schedule, rows,
+            rows_x0, session.decode_body, session.joint_map, devices=[CARD],
+            gmm=session.gmm, edge_idxs=session.edge_idxs, joints_model=jm,
+            coll_stage_mask=session.coll_stage_mask,
+            lhand_gmm=session.lhand_gmm, rhand_gmm=session.rhand_gmm,
+            collision_fn=session.collision_for(model))
+        run = mh.fit_batch_multihost.last_run
+        torch.save({"loss": res.loss.cpu(), "x": res.x.cpu()},
+                   os.path.join(args.out, f"rank{mh.process_index()}.pt"))
+        print("MULTIHOST_RANK " + json.dumps({
+            "process": mh.process_index(), "rows": [lo, hi],
+            "init_done": init_done, "problem_s": problem_s,
+            "fit_start": run["fit_start"], "fit_end": run["fit_end"],
+            "fit_s": run["fit_s"], "wait_ms": 1e3 * run["wait_s"],
+            "gather_ms": 1e3 * run["gather_s"],
+            "launches": run["launches"], "host_reads": res.host_reads,
+            **digests}), flush=True)
+    finally:
+        mh.shutdown()
+    return 0
+
+
+def phase_multihost(model, jm, frames, x0, by_blocks):
+    """(a) `python -m smplifyx_torch.parallel.multihost 2 1` on the card:
+    the dry run's ranks must agree to the bit.  (b) MULTIHOST_RANKS ranks,
+    fresh interpreters on cuda:0, fit collision_on's preset on the
+    PARALLEL_FRAMES frames of phase_data_parallel (`multihost_rank`); their
+    gathered loss and x must be the same bits in every rank, and every lane
+    the bits of session.fit on the same block in this process
+    (`by_blocks`); each rank must launch K1, K2 and K3 (both kernels) in
+    its fit and build no skinning plan.  Returns the ranks' launches."""
+    import tempfile
+    import types
+
+    import torch
+
+    from smplifyx_torch.parallel import multihost as mh
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    dry = subprocess.run(
+        [sys.executable, "-m", "smplifyx_torch.parallel.multihost", "2", "1",
+         "--timeout", str(MULTIHOST_TIMEOUT_S)], cwd=here, capture_output=True,
+        text=True, timeout=MULTIHOST_TIMEOUT_S + 60)
+    dry_s = time.perf_counter() - t0
+    lines = [ln for ln in dry.stdout.splitlines()
+             if ln.startswith(("SHARD ", "GLOBAL_LOSS ", "dryrun_multihost"))]
+    emit({"phase": "multihost_dryrun", "command": dry.args[1:],
+          "returncode": dry.returncode, "wall_s": dry_s, "lines": lines})
+    if dry.returncode != 0 or not lines[-1].startswith("dryrun_multihost OK"):
+        raise AssertionError("the multihost dry run failed:\n"
+                             + dry.stdout[-4000:] + dry.stderr[-4000:])
+
+    B, n = PARALLEL_FRAMES, MULTIHOST_RANKS
+    b = B // n
+    rows = [mh.digest(frames.map(lambda a, r=r: a[r * b:(r + 1) * b]),
+                      x0[r * b:(r + 1) * b]) for r in range(n)]
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["-c", "import sys, chip_smoke; "
+                "sys.exit(chip_smoke.multihost_rank(sys.argv[1:]))",
+                "--model-digest", mh.digest(model, jm),
+                "--rows-digests", ",".join(rows), "--out", out]
+        outs = mh.launch_ranks([argv] * n, MULTIHOST_TIMEOUT_S, cwd=here)
+        started = mh.launch_ranks.last_run["started_at"]
+        results = [torch.load(os.path.join(out, f"rank{r}.pt"))
+                   for r in range(n)]
+    ranks = [json.loads(ln.split(" ", 1)[1]) for text in outs
+             for ln in text.splitlines() if ln.startswith("MULTIHOST_RANK ")]
+    window = (max(r["fit_end"] for r in ranks)
+              - min(r["fit_start"] for r in ranks))
+    same = all(torch.equal(r["loss"], results[0]["loss"])
+               and torch.equal(r["x"], results[0]["x"]) for r in results)
+    vs_blocks = _diff_row(types.SimpleNamespace(
+        **{k: v.to(CARD) for k, v in results[0].items()}), by_blocks[n])
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    emit({"phase": "multihost", "path": "collision_on", "ranks": n, "B": B,
+          "V": model.num_verts, "card": torch.cuda.get_device_name(0),
+          "nvidia_smi": nvidia_smi(),
+          "per_rank": [{"process": r["process"], "rows": r["rows"],
+                        "startup_s": r["init_done"] - started,
+                        "problem_s": r["problem_s"], "fit_s": r["fit_s"],
+                        "wait_ms": r["wait_ms"], "gather_ms": r["gather_ms"],
+                        "host_reads": r["host_reads"],
+                        "launches": r["launches"]} for r in ranks],
+          "fit_window_s": window, "frames_per_s": B / window,
+          "loss_median": float(results[0]["loss"].median()),
+          "bit_identical_across_ranks": same,
+          "vs_blocks_in_process": vs_blocks, "launches": launches})
+    if len(ranks) != n or not same:
+        raise AssertionError("the ranks' gathered results differ")
+    if vs_blocks["bit_equal_lanes"] != B:
+        raise AssertionError(
+            f"the ranks' fit is bit-equal to session.fit on the same blocks "
+            f"in {vs_blocks['bit_equal_lanes']} of {B} lanes")
+    for r in ranks:
+        for name in ("lbs", "gather", "scatter", "scatter_join"):
+            if r["launches"][name] <= 0:
+                raise AssertionError(f"rank {r['process']} never launched "
+                                     f"the {name} kernel")
+        if r["launches"]["lbs_plan_builds"]:
+            raise AssertionError(f"rank {r['process']}'s fit built skinning "
+                                 "plans")
+    return launches
 
 
 # ---------------------------------------------------------------- oracle
@@ -2154,15 +2327,20 @@ def main() -> int:
     # collision-off fit
     par_forward, block_rows = phase_sharded_forward(collision_on[1], peak)
     phase_cold_build()
-    par_on = phase_data_parallel("collision_on", *collision_on,
-                                 meshes=(("1x1", [CARD]),
-                                         ("2x1", [CARD, CARD])))
-    par_off = phase_data_parallel("collision_off", session, model, jm,
-                                  frames, x0, meshes=(("2x1", [CARD, CARD]),))
+    par_on, on_blocks = phase_data_parallel(
+        "collision_on", *collision_on,
+        meshes=(("1x1", [CARD]), ("2x1", [CARD, CARD])))
+    par_off, _ = phase_data_parallel("collision_off", session, model, jm,
+                                     frames, x0,
+                                     meshes=(("2x1", [CARD, CARD]),))
     par_sharded = phase_sharded_fit(session, model, frames, x0)
     parallel = {k: par_forward[k] + par_on[k] + par_off[k] + par_sharded[k]
                 for k in ("lbs", "gather", "scatter")}
-    del collision_on
+
+    # ---- the multihost path (parallel/multihost.py): the dry run, then
+    # collision_on's 64 frames in two ranks over gloo on the one card
+    multihost = phase_multihost(*collision_on[1:], on_blocks)
+    del collision_on, on_blocks
 
     # ---- the full-scale oracle audit of the broad phase; SMPL-H and SMPL
     phase_oracle()
@@ -2192,7 +2370,8 @@ def main() -> int:
         return {"app": app[name], "collision_on": launches[name],
                 "viz": viz[name], "serve": serve[name],
                 "first_order": first_order[name],
-                "parallel": parallel[name], "families": families[name]}
+                "parallel": parallel[name], "multihost": multihost[name],
+                "families": families[name]}
 
     emit({"kernels": [
         kernel_entry("lbs", "smplifyx_torch/csrc/lbs.cu",

@@ -45,7 +45,10 @@ import torch
 
 from smplifyx_torch.evaluation.metrics import procrustes_v2v
 from smplifyx_torch.fitting.energy import FrameData
+from smplifyx_torch.fitting.lbfgs import LBFGSConfig
 from smplifyx_torch.fitting.params import FitSettings, pack
+from smplifyx_torch.fitting.pipeline import FitOptions
+from smplifyx_torch.fitting.stages import build_stage_schedule
 from smplifyx_torch.models.bodymodel import (
     SHAPE_SPACE_DIM,
     SMPLXModel,
@@ -59,7 +62,7 @@ from smplifyx_torch.models.sparse import build_joints_model
 from smplifyx_torch.models.vposer import random_params
 from smplifyx_torch.ops.camera import CameraParams, project_points
 from smplifyx_torch.ops.rotation import batch_rodrigues
-from smplifyx_torch.session import build_fit_session
+from smplifyx_torch.session import _identity, build_fit_session
 from smplifyx_torch.utils.config import load_config
 from smplifyx_torch.utils.device import full_f32_matmuls, resolve_device
 
@@ -216,6 +219,64 @@ def family_problem(model, settings: FitSettings, joint_map: torch.Tensor,
     z3 = t(np.zeros((B, 3)))
     x0 = pack(settings, cam_t=z3, global_orient=z3, body=t(np.zeros((B, dof))))
     return frames, x0
+
+
+def multihost_problem(batch: int, num_verts: int = 64, device="cuda") -> dict:
+    """The global problem of the multi-host dry run, the inputs of the JAX
+    package's `__graft_entry__.py::dryrun_multihost`: `batch` frames on
+    `synthetic_model(num_verts, seed=0)`, ground-truth body poses from
+    `default_rng(0)` seen 4 m away (focal 1000, centre (320, 240)), every
+    coco25 keypoint with confidence 1, the two-stage schedule and two
+    L-BFGS iterations per stage.  Every rank builds it whole from the seed
+    and keeps its own rows.  Returns `fit_batch`'s arguments by name
+    (model, settings, options, stage_weights, frames, x0, decode_body,
+    joint_map, edge_idxs)."""
+    dev = resolve_device(device)
+    full_f32_matmuls()
+    B = batch
+    model = synthetic_model(num_verts=num_verts, seed=0, device=dev)
+    settings = FitSettings(use_face_contour=True)
+    joint_map = torch.as_tensor(
+        model_to_annotation("smplx", True, True, True, "coco25"),
+        dtype=torch.int64, device=dev)
+    K = joint_map.shape[0]
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    rng = np.random.default_rng(0)
+    gt = dataclasses.replace(BodyParams.zeros(B, device=dev),
+                             body_pose=t(rng.normal(0, 0.1, (B, 63))))
+    focal = t(np.full((B, 2), 1000.0))
+    center = t(np.tile([[320.0, 240.0]], (B, 1)))
+    with torch.no_grad():
+        joints = smplx_forward(model, gt, joint_map=joint_map).joints
+        cam = CameraParams(torch.eye(3, device=dev).expand(B, 3, 3),
+                           t(np.tile([[0.0, 0.0, 4.0]], (B, 1))), focal, center)
+        gt2d = project_points(cam, joints)
+    frames = FrameData(
+        gt_joints=gt2d, conf=t(np.ones((B, K))), joint_weights=t(np.ones((B, K))),
+        focal=focal, center=center, data_weight=t(np.full((B,), 1000.0 / 480)),
+        init_joints_mask=t(np.isin(np.arange(K), INIT_JOINTS)
+                           .astype(np.float32)[None].repeat(B, 0)),
+        trans_estimation=t(np.zeros((B, 3))),
+        depth_loss_weight=t(np.full((B,), 1e2)),
+        regression_body=t(np.zeros((B, 63))),
+    )
+    z3 = t(np.zeros((B, 3)))
+    lbfgs = LBFGSConfig(max_iters=2, history=4, max_ls=4)
+    return dict(
+        model=model, settings=settings,
+        options=FitOptions(lbfgs=lbfgs, camera_lbfgs=lbfgs),
+        stage_weights=build_stage_schedule(
+            [4.04e2, 4.78], shape_weights=[1e2, 5.0], expr_weights=[1e2, 5.0],
+            hand_pose_prior_weights=[1e2, 5.0], hand_joints_weights=[0.0, 1.0],
+            face_joints_weights=[0.0, 1.0], device=dev),
+        frames=frames,
+        x0=pack(settings, cam_t=z3, global_orient=z3,
+                body=t(np.zeros((B, 63)))),
+        decode_body=_identity, joint_map=joint_map,
+        edge_idxs=torch.as_tensor([[5, 12], [2, 9]], device=dev))
 
 
 def slice_model(num_verts: int = SLICE_VERTS, device="cuda"):
