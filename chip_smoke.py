@@ -69,7 +69,18 @@ phase on the card at `make_collision_fn`'s defaults against the exact
 pair set of the ~21k-face posed-human proxy (`utils/proxy_mesh.py`), with
 2x headroom at every budget.  The `families` phase checks K1 at J=52 and
 J=24 and fits SMPL-H and SMPL at V=10475 through `build_fit_session`
-(collision off).
+(collision off).  The `video` phase fits the JAX package's batched
+video-sequence example at full width (`problem.video_problem(128, 10475,
+"slice")` through `examples/video_batch.py::fit_sequence`: a broad phase
+every L-BFGS iteration, strong Wolfe) twice, bit-equal, with two row
+plans per broad phase; it prints frames/s, host reads, broad phases and
+PA-V2V against the sequence's ground truth, holds the stage-2 energy and
+gradient of 16 lanes to the CPU's at x0 and at the fitted x
+(`video_energy`) and the quality to the CPU's, and runs the example's
+command line at 32 frames in a subprocess (`video_cli`).  The
+`collision_profile` phase runs `tools/profile_collision.py` at B=256 with
+`--stages --apply`: every component, broad-phase step and narrow-phase
+part on the device, with each level's saturation.
 
 After the collision-on, collision-off, first-order and app paths the
 `quality` phase holds the fit's meshes
@@ -195,6 +206,19 @@ MULTIHOST_TIMEOUT_S = 600
 # The families phase: SMPL-H with hands and SMPL without, at V=10475.
 FAMILIES = (("smplh", True), ("smpl", False))
 FAMILY_BATCH = 32
+# The video phase: the JAX package's examples/video_batch.py at full
+# width, 128 frames (about 4 s of 30 fps video) on the slice's model
+# (V=10475: the example's random faces saturate every budget at that
+# width); the stage-2 energy of its first VIDEO_CPU_LANES lanes on the card
+# against the CPU; then the example's command line at its own size (32
+# frames, V=1024) in a subprocess.
+VIDEO_FRAMES = 128
+VIDEO_CPU_LANES = 16
+VIDEO_CLI_FRAMES = 32
+VIDEO_CLI_TIMEOUT_S = 300
+# The collision_profile phase: tools/profile_collision.py at the doubled
+# batch of the main path's collision stages.
+PROFILE_BATCH = 256
 
 # Data-sheet peaks (dense, no sparsity): FP32 on the CUDA cores, memory rate.
 PEAKS = {  # name fragment -> (FP32 FLOP/s, bytes/s)
@@ -1193,7 +1217,7 @@ def _spearman(a, b):
 
 
 def phase_quality(label, model, settings, decode_body, x, losses,
-                  lane_ref=None):
+                  lane_ref=None, gt=None):
     """The fit's recovered meshes against the problem's ground truth, in
     mm, through evaluation/metrics.py on the card: PA-V2V over all
     vertices (median, mean, worst lane), per part of
@@ -1201,7 +1225,8 @@ def phase_quality(label, model, settings, decode_body, x, losses,
     The same function on the CPU, on the same arrays, must agree within
     QUALITY_TOL_MM.  With `lane_ref` (the CPU refit of the first lanes,
     its session and model), the PA-V2V of those lanes on both devices
-    beside their final losses."""
+    beside their final losses.  The ground truth is `build_problem`'s
+    unless `gt` (vertices, skeleton joints) gives another."""
     import torch
 
     from smplifyx_torch.evaluation.ehf import synthetic_part_vertex_ids
@@ -1211,7 +1236,7 @@ def phase_quality(label, model, settings, decode_body, x, losses,
     B, V = x.shape[0], model.num_verts
     parts = synthetic_part_vertex_ids(V)
     fit_v, fit_j = fit_meshes(model, settings, decode_body, x)
-    gt_v, gt_j = ground_truth_meshes(model, B)
+    gt_v, gt_j = gt if gt is not None else ground_truth_meshes(model, B)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     card = lane_errors_mm(fit_v, gt_v, fit_j, gt_j, parts)
@@ -2244,6 +2269,229 @@ def phase_families(peak):
     return total, lbs_rows
 
 
+# ---------------------------------------------------------------- video
+
+
+def video_terms(problem, frames, x):
+    """Stage-2 energy per lane (collision weight 1, on a broad phase of
+    these vertices), its gradient and the collision term, at x on x's
+    device."""
+    import torch
+
+    from smplifyx_torch.fitting.energy import smplify_energy_terms
+
+    p = problem
+    xx = x.clone().requires_grad_(True)
+    terms = smplify_energy_terms(
+        xx, p.settings, p.model, frames, p.schedule.stage(2), 2, 3,
+        p.decode_body, p.joint_map, joints_model=p.joints_model,
+        collision_fn=p.collision_fn)
+    f = sum(terms.values())
+    (g,) = torch.autograd.grad(f.sum(), xx)
+    return f.detach(), g, terms["collision"].detach()
+
+
+def phase_video():
+    """The JAX package's batched video-sequence example at full width:
+    `problem.video_problem(VIDEO_FRAMES, 10475, "slice")` fitted twice
+    through `examples/video_batch.py::fit_sequence` (a broad phase every
+    L-BFGS iteration, strong-Wolfe line search).  Launch counts are set to
+    0 just before fit_sequence and read just after (its two fits and the
+    recovery).  The two fits must end bit-equal, launch K1 on the full
+    mesh and the subset, K2 and K3, build two row plans per broad phase and
+    no skinning plan; the losses must be finite.  Returns the launches,
+    the problem and the SequenceFit."""
+    import torch
+
+    from smplifyx_torch.examples.video_batch import fit_sequence
+    from smplifyx_torch.ops.gather import row_plan
+    from smplifyx_torch.ops.lbs import lbs_plan
+    from smplifyx_torch.problem import SLICE_VERTS, fit_meshes, video_problem
+
+    t0 = time.perf_counter()
+    p = video_problem(VIDEO_FRAMES, SLICE_VERTS, "slice", CARD)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    fn = p.collision_fn
+    broad = count_broad_phases(fn)
+    reset_counts()
+    row_plan.builds = 0
+    lbs_plan.builds = 0
+    t0 = time.perf_counter()
+    seq = fit_sequence(p)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    plans, lbs_plans = row_plan.builds, lbs_plan.builds
+    broad = dict(broad)
+    for name in broad:                  # back to the class's methods
+        delattr(fn, name)
+    res, first = seq.result, seq.warmup
+    bit_equal = all(torch.equal(getattr(res, k), getattr(first, k))
+                    for k in ("x", "loss", "stage_losses", "stage_evals"))
+    B, V = VIDEO_FRAMES, p.model.num_verts
+    split = _lbs_split(launches, V, p.joints_model.sub_lbs.shape[0])
+    v2v = 1000.0 * seq.pa_v2v.cpu()
+    broad_total = sum(broad.values())
+    fit_v, _ = fit_meshes(p.model, p.settings, p.decode_body, res.x)
+    sat = fn.saturation(fit_v)
+    row = {
+        "phase": "video", "card": torch.cuda.get_device_name(0),
+        "B": B, "V": V, "F": fn.F, "sigma": fn.sigma, "setup_s": setup_s,
+        "wall_s": wall, "fit_s": seq.seconds,
+        "frames_per_s": B / seq.seconds,
+        "host_reads_per_fit": res.host_reads,
+        "broad_phases": broad, "broad_phases_per_fit": broad_total / 2,
+        "row_plans": plans, "row_plans_per_fit": plans / 2,
+        "lbs_plan_builds": lbs_plans,
+        "launches": launches, "lbs_launches": split,
+        "camera_evals_max": int(res.camera_evals.max()),
+        "stage_evals_max": res.stage_evals.amax(1).tolist(),
+        "stage_evals_median": res.stage_evals.float().median(1).values.tolist(),
+        "loss_median": float(res.loss.median()),
+        "stage_loss_median": res.stage_losses.median(1).values.tolist(),
+        "rerun_bit_equal": bit_equal,
+        "pa_v2v_mm": {"mean": float(v2v.mean()), "median": float(v2v.median()),
+                      "worst_frame": float(v2v.max()),
+                      "worst_frame_index": int(v2v.argmax())},
+        "final_saturation": {
+            k: {"max": int(c.max()), "median": float(c.float().median()),
+                "budget": b, "lanes_at_budget": int((c >= b).sum())}
+            for k, (c, b) in sat.items()},
+    }
+    emit(row)
+    losses = torch.cat([res.loss[None], res.camera_loss[None],
+                        res.stage_losses])
+    if not bool(torch.isfinite(losses).all()) or not bool(
+            torch.isfinite(seq.pa_v2v).all()):
+        raise AssertionError("a video loss or PA-V2V is not finite")
+    if not bit_equal:
+        raise AssertionError("two video fits of the same inputs differ")
+    for name in ("gather", "scatter", "scatter_join"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the video fit never launched the {name} kernel")
+    if not (split["full_mesh"] > 0 and split["subset"] > 0
+            and sum(split.values()) == launches["lbs"]):
+        raise AssertionError(f"the video fit launched K1 {split} "
+                             f"({launches['lbs']} in all)")
+    if lbs_plans != 0:
+        raise AssertionError(f"the video fit built {lbs_plans} skinning plans")
+    if broad_total <= 0 or plans != 2 * broad_total:
+        raise AssertionError(f"the video fit built {plans} row plans for "
+                             f"{broad} broad phases")
+    return launches, p, seq
+
+
+def phase_video_energy(problem, seq):
+    """The stage-2 energy, gradient and collision term of the video
+    problem's first VIDEO_CPU_LANES lanes on the card and on the CPU (the
+    problem built again there from the seed), each broad phase on its own
+    device: at x0 (the rest pose, collision term on) within
+    ENERGY_VALUE_RTOL and GRAD_TOL, at the card's fitted x within the
+    same-x bounds of the lane references (SAME_X_VALUE_RTOL,
+    SAME_X_GRAD_TOL).  There the fitted poses press the penetrating
+    vertices against the cone field, whose 1/sigma = 1e3 scales the
+    devices' f32 rounding of the vertices into the penalty (on an H100:
+    5.1e-5 of the value, 2.0e-4 of the gradient's scale); a wrong pair,
+    sign or index moves either by O(1)."""
+    import torch
+
+    from smplifyx_torch.problem import SLICE_VERTS, video_problem
+
+    n = VIDEO_CPU_LANES
+    t0 = time.perf_counter()
+    cpu = video_problem(VIDEO_FRAMES, SLICE_VERTS, "slice", "cpu")
+    rows, ok = {}, True
+    bounds = {"x0": (ENERGY_VALUE_RTOL, GRAD_TOL),
+              "fitted": (SAME_X_VALUE_RTOL, SAME_X_GRAD_TOL)}
+    for name, x in (("x0", problem.x0), ("fitted", seq.result.x)):
+        fk, gk, ck = video_terms(problem, problem.frames.map(lambda a: a[:n]),
+                                 x[:n])
+        fc, gc, cc = video_terms(cpu, cpu.frames.map(lambda a: a[:n]),
+                                 x[:n].cpu())
+        f_rel = ((fk.cpu() - fc).abs() / fc.abs()).max().item()
+        g_err = ((gk.cpu() - gc).abs().max()
+                 / max(1.0, gc.abs().max().item())).item()
+        finite = bool(torch.isfinite(fk).all() and torch.isfinite(gk).all())
+        rows[name] = {"value_max_rel_err": f_rel,
+                      "grad_max_err_per_scale": g_err,
+                      "collision_term_median": float(ck.median()),
+                      "collision_term_max": float(ck.max()),
+                      "collision_rel_err_max": float(
+                          ((ck.cpu() - cc).abs() / cc.abs().clamp(min=1e-30))
+                          .max()),
+                      "lanes_with_collision": int((ck > 0).sum()),
+                      "finite": finite, "bounds": bounds[name]}
+        f_tol, g_tol = bounds[name]
+        ok = ok and finite and f_rel <= f_tol and g_err <= g_tol
+    emit({"phase": "video_energy", "lanes": n, "V": SLICE_VERTS,
+          "cpu_s": time.perf_counter() - t0, **rows})
+    if not ok:
+        raise AssertionError(f"the video energy on the card and the CPU "
+                             f"differ: {rows}")
+    if not any(r["lanes_with_collision"] for r in rows.values()):
+        raise AssertionError("no lane has a collision term: the check is empty")
+
+
+def phase_video_cli():
+    """The example's command line at its own size in a subprocess: `python
+    -m smplifyx_torch.examples.video_batch 32` must exit 0 and print its
+    three lines, the losses finite.  (Its random faces saturate the
+    budgets at this width, as in JAX: no PA-V2V bound.)"""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "smplifyx_torch.examples.video_batch",
+         str(VIDEO_CLI_FRAMES)],
+        cwd=here, capture_output=True, text=True, timeout=VIDEO_CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    emit({"phase": "video_cli", "frames": VIDEO_CLI_FRAMES,
+          "returncode": proc.returncode, "wall_s": wall, "lines": lines[-3:]})
+    if proc.returncode != 0:
+        raise AssertionError(f"the video example exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    want = (f"fitted {VIDEO_CLI_FRAMES}-frame sequence in ",
+            "PA-V2V vs ground truth: mean ", "losses finite: True")
+    if len(lines) < 3 or not all(
+            line.startswith(w) for line, w in zip(lines[-3:], want)):
+        raise AssertionError(f"the video example printed {lines[-3:]}")
+
+
+def phase_collision_profile():
+    """tools/profile_collision.py at PROFILE_BATCH lanes with --stages and
+    --apply (its JSON line comes before this phase's): every component,
+    broad-phase step and narrow-phase part timed on the device, finite and
+    positive, the saturation of each level, and K1, K2 and K3 launched.
+    Launch counts are set to 0 just before the tool runs and read just
+    after.  Returns them."""
+    from smplifyx_torch.ops.collision import CollisionFn
+    from smplifyx_torch.tools import profile_collision as tool
+
+    reset_counts()
+    t0 = time.perf_counter()
+    row = tool.main([str(PROFILE_BATCH), "--stages", "--apply"])
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    emit({"phase": "collision_profile", "B": PROFILE_BATCH, "wall_s": wall,
+          "launches": launches})
+    want = {"device_ms": tool.COMPONENTS,
+            "stages_device_ms": CollisionFn.BUILD_STEPS,
+            "apply_device_ms": tool.APPLY_PARTS}
+    for key, names in want.items():
+        got = row.get(key, {})
+        if set(got) != set(names) or not all(
+                np.isfinite(v) and v > 0 for v in got.values()):
+            raise AssertionError(f"the profile's {key} is {got}")
+    if set(row["saturation"]) != {"superblock", "hit_superblock", "hit",
+                                  "final", "narrow_tris"}:
+        raise AssertionError(f"the profile's saturation is {row['saturation']}")
+    for name in ("lbs", "gather", "scatter", "scatter_join"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the profile never launched the {name} kernel")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, shape_keys, **extra):
     main = rows[0]
     entry = {
@@ -2346,6 +2594,19 @@ def main() -> int:
     phase_oracle()
     families, family_rows = phase_families(peak)
 
+    # ---- the video path: the batched sequence example at full width (a
+    # broad phase per L-BFGS iteration, strong Wolfe), its energy on the
+    # card against the CPU, its quality, its command line; then the
+    # collision-stage profiler
+    video, problem, seq = phase_video()
+    phase_video_energy(problem, seq)
+    phase_quality("video", problem.model, problem.settings,
+                  problem.decode_body, seq.result.x, seq.result.loss,
+                  gt=(problem.gt_vertices, problem.gt_joints))
+    del problem, seq
+    phase_video_cli()
+    collision_profile = phase_collision_profile()
+
     # ---- the first-order path: adam with the collision term (a broad
     # phase per evaluation), then short collision-off sgd and rmsprop fits
     first_order, (session, model, res, lane_ref) = phase_first_order("adam")
@@ -2371,7 +2632,8 @@ def main() -> int:
                 "viz": viz[name], "serve": serve[name],
                 "first_order": first_order[name],
                 "parallel": parallel[name], "multihost": multihost[name],
-                "families": families[name]}
+                "families": families[name], "video": video[name],
+                "collision_profile": collision_profile[name]}
 
     emit({"kernels": [
         kernel_entry("lbs", "smplifyx_torch/csrc/lbs.cu",

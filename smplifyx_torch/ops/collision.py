@@ -185,6 +185,24 @@ def _eb(v):
     return v.repeat((1,) * (v.dim() - 1) + (_SUP,))
 
 
+def _pair_cols(device):
+    """(i, j) of each column i*8+j of an 8x8 pair row, [64] each."""
+    cols = torch.arange(64, device=device)
+    return cols // 8, cols % 8
+
+
+def _overlap(m, A_, B_):
+    """m & the AABB overlap of every column i*8+j of an 8x8 pair row: the
+    packed rows A_, B_ [..., C*8] hold the 8 boxes' min x, y, z then max
+    x, y, z, 8 values per coordinate."""
+    for k in range(3):
+        m = m & (_eb(B_[..., k * 8:(k + 1) * 8])
+                 <= _ea(A_[..., (3 + k) * 8:(4 + k) * 8])) \
+            & (_eb(B_[..., (3 + k) * 8:(4 + k) * 8])
+               >= _ea(A_[..., k * 8:(k + 1) * 8]))
+    return m
+
+
 class _PairGather(torch.autograd.Function):
     """Two-level narrow-phase corner fetch, forward on K2 and VJP on K3.
 
@@ -288,41 +306,70 @@ class CollisionFn:
         return out
 
     # ---- broad phase ---------------------------------------------------
+    #
+    # A chain of named steps over a state dict: `_step_<name>(st)` returns
+    # the entries it adds.  `build`, `build_refresh`, `saturation` and
+    # `candidate_pairs` run a prefix or all of it;
+    # tools/profile_collision.py times each step on its own inputs.
 
-    def morton_order(self, vertices: torch.Tensor) -> torch.Tensor:
-        """Morton rank of each triangle's AABB centroid -> permutation
-        [B, F] (stable sort: equal codes keep face order, as jnp.argsort)."""
-        tris = vertices.detach()[:, self.faces]             # [B, F, 3, 3]
-        cent = 0.5 * (tris.amin(dim=2) + tris.amax(dim=2))  # [B, F, 3]
+    BUILD_STEPS = ("aabb", "morton_sort", "sorted_tables", "level0",
+                   "level1", "level2", "final", "narrow_tris", "row_plans")
+    # build_refresh keeps the previous aux's Morton order: no sort.
+    REFRESH_STEPS = tuple(s for s in BUILD_STEPS if s != "morton_sort")
+
+    def run_steps(self, st: dict, steps) -> dict:
+        """Run the named broad-phase steps on the state `st` in order ->
+        the state with every step's entries added."""
+        for name in steps:
+            st = {**st, **getattr(self, "_step_" + name)(st)}
+        return st
+
+    def _step_aabb(self, st):
+        """vertices [B, V, 3] -> amin, amax [B, F, 3]: each face's AABB."""
+        tris = st["vertices"].detach()[:, self.faces]       # [B, F, 3, 3]
+        return {"amin": tris.amin(dim=2), "amax": tris.amax(dim=2)}
+
+    def _step_morton_sort(self, st):
+        """-> order [B, F], the permutation by the Morton code of each
+        AABB centroid (stable sort: equal codes keep face order, as
+        jnp.argsort), and sorted_pack [B, F, 3], the faces in that order."""
+        cent = 0.5 * (st["amin"] + st["amax"])              # [B, F, 3]
         lo = cent.amin(dim=1, keepdim=True)
         span = torch.clamp(cent.amax(dim=1, keepdim=True) - lo, min=1e-9)
         qc = torch.clamp((cent - lo) / span * 1023.0, 0.0, 1023.0)
         qi = qc.to(torch.int64)
         code = (_interleave3(qi[..., 0]) | (_interleave3(qi[..., 1]) << 1)
                 | (_interleave3(qi[..., 2]) << 2))
-        return torch.argsort(code, dim=-1, stable=True)
+        order = torch.argsort(code, dim=-1, stable=True)
+        return {"order": order, "sorted_pack": self.faces[order]}
 
-    def _sorted_tables(self, vertices, order):
-        """Sorted, padded funnel inputs: amin_s/amax_s [B, Fp, 3] and
-        segm_sp/parents_sp [B, Fp] at the given order."""
-        B = vertices.shape[0]
+    def _step_sorted_tables(self, st):
+        """-> the funnel's inputs at `order`, padded to Fp: amin_s, amax_s
+        [B, Fp, 3] and segm_sp, parents_sp [B, Fp] (None without parts)."""
+        amin, order = st["amin"], st["order"]
+        B = amin.shape[0]
         pad = self.Fp - self.F
-        tris = vertices.detach()[:, self.faces]
-        cols = [tris.amin(dim=2), tris.amax(dim=2)]
+        cols = [amin, st["amax"]]
         if self.segm is not None:
             cols += [self.segm[:self.F, None].expand(B, self.F, 1),
                      self.parents[:self.F, None].expand(B, self.F, 1)]
         packed = _rows(torch.cat(cols, dim=-1), order)      # [B, F, 6 or 8]
         big = packed.new_full((B, pad, 3), _BIG)
-        amin_s = torch.cat([packed[..., 0:3], big], dim=1)
-        amax_s = torch.cat([packed[..., 3:6], -big], dim=1)
-        segm_sp = parents_sp = None
+        out = {"amin_s": torch.cat([packed[..., 0:3], big], dim=1),
+               "amax_s": torch.cat([packed[..., 3:6], -big], dim=1),
+               "segm_sp": None, "parents_sp": None}
         if self.segm is not None:
-            segm_sp = torch.cat(
+            out["segm_sp"] = torch.cat(
                 [packed[..., 6], self.segm[self.F:].expand(B, pad)], dim=1)
-            parents_sp = torch.cat(
+            out["parents_sp"] = torch.cat(
                 [packed[..., 7], self.parents[self.F:].expand(B, pad)], dim=1)
-        return amin_s, amax_s, segm_sp, parents_sp
+        return out
+
+    def morton_order(self, vertices: torch.Tensor) -> torch.Tensor:
+        """Morton rank of each triangle's AABB centroid -> permutation
+        [B, F]."""
+        return self.run_steps({"vertices": vertices},
+                              ("aabb", "morton_sort"))["order"]
 
     def _rel_drop(self, sa, pa, sb, pb):
         drop = (sa == sb) | (pa == sb) | (pb == sa)
@@ -330,88 +377,94 @@ class CollisionFn:
             drop = drop | ((sa == p_) & (sb == q_)) | ((sa == q_) & (sb == p_))
         return drop
 
-    def _funnel(self, amin_s, amax_s, segm_sp, parents_sp):
-        """Three-level compaction funnel over sorted, padded tables ->
-        ((ra, rb) [B, P] triangle ranks, valid [B, P]), counts per level
-        ({level: ([B] survivors, budget)})."""
+    def _step_level0(self, st):
+        """Superblock all-pairs: -> block boxes bmin, bmax [B, nb, 3], the
+        superblock-pair mask ms [B, ns, ns] and its first Ps pairs (si, sj,
+        validS [B, Ps])."""
+        amin_s = st["amin_s"]
         B = amin_s.shape[0]
-        nb, ns, nbp = self.nb, self.ns, self.nbp
-        dev = amin_s.device
-        spad = nbp - nb
-        with_parts = segm_sp is not None
+        nb, ns = self.nb, self.ns
+        spad = self.nbp - nb
         bmin = amin_s.reshape(B, nb, _BLK, 3).amin(dim=2)      # [B, nb, 3]
-        bmax = amax_s.reshape(B, nb, _BLK, 3).amax(dim=2)
+        bmax = st["amax_s"].reshape(B, nb, _BLK, 3).amax(dim=2)
         big = bmin.new_full((B, spad, 3), _BIG)
         smin = torch.cat([bmin, big], 1).reshape(B, ns, _SUP, 3).amin(dim=2)
         smax = torch.cat([bmax, -big], 1).reshape(B, ns, _SUP, 3).amax(dim=2)
-
-        if with_parts:
-            sgb = segm_sp.reshape(B, nb, _BLK)
-            prb = parents_sp.reshape(B, nb, _BLK)
-            # uniform = one part and one parent across the block
-            buni = ((sgb == sgb[..., :1]).all(-1)
-                    & (prb == prb[..., :1]).all(-1))          # [B, nb]
-            bseg, bpar = sgb[..., 0], prb[..., 0]
-
-        # ---- level 0: superblock all-pairs
-        iu = torch.arange(ns, device=dev)
+        iu = torch.arange(ns, device=amin_s.device)
         ms = (iu[:, None] <= iu[None, :]).expand(B, ns, ns)
         for k in range(3):
             ms = ms & (smin[:, :, None, k] <= smax[:, None, :, k]) \
                 & (smax[:, :, None, k] >= smin[:, None, :, k])
         posS, validS = _compact(ms.reshape(B, -1), self.Ps)
-        si, sj = posS // ns, posS % ns
+        return {"bmin": bmin, "bmax": bmax, "ms": ms, "si": posS // ns,
+                "sj": posS % ns, "validS": validS}
 
-        # ---- level 1: 8x8 block refinement on packed [B, ns, C*8] rows
+    def _blk_mask(self, sup_tab, si_, sj_, valid_):
+        """[B, N] superblock pairs -> [B, N, 64] surviving block pairs
+        (AABB overlap, rank order, conservative uniform-part filter)."""
+        nb = self.nb
+        ii, jj = _pair_cols(sup_tab.device)
+        ba_ = si_[..., None] * _SUP + ii
+        bb_ = sj_[..., None] * _SUP + jj
+        m = valid_[..., None] & (ba_ <= bb_) & (ba_ < nb) & (bb_ < nb)
+        A_, B_ = _rows(sup_tab, si_), _rows(sup_tab, sj_)
+        m = _overlap(m, A_, B_)
+        if self.segm is not None:
+            ua = _ea(A_[..., 48:56] > 0.5)
+            ub = _eb(B_[..., 48:56] > 0.5)
+            m = m & ~((ua & ub) & self._rel_drop(
+                _ea(A_[..., 56:64]), _ea(A_[..., 64:72]),
+                _eb(B_[..., 56:64]), _eb(B_[..., 64:72])))
+        return m
+
+    def _step_level1(self, st):
+        """8x8 block refinement of the level-0 pairs on packed [B, ns, C*8]
+        superblock rows -> hit_s [B, Ps] (a pair keeps a block pair), its
+        first Phs pairs (si_h, sj_h) and their block masks mb_h
+        [B, Phs, 64]."""
+        bmin, bmax = st["bmin"], st["bmax"]
+        B, nb = bmin.shape[0], self.nb
+        spad = self.nbp - nb
+
         def sup_rows(col):                                  # [B, nb] -> [B, ns, 8]
             return torch.cat([col, col[:, -1:].expand(B, spad)], 1) \
-                .reshape(B, ns, _SUP)
+                .reshape(B, self.ns, _SUP)
 
         sup_cols = [sup_rows(bmin[..., k]) for k in range(3)] \
             + [sup_rows(bmax[..., k]) for k in range(3)]
-        if with_parts:
-            sup_cols += [sup_rows(buni.to(bmin.dtype)), sup_rows(bseg),
-                         sup_rows(bpar)]
+        if self.segm is not None:
+            sgb = st["segm_sp"].reshape(B, nb, _BLK)
+            prb = st["parents_sp"].reshape(B, nb, _BLK)
+            # uniform = one part and one parent across the block
+            buni = ((sgb == sgb[..., :1]).all(-1)
+                    & (prb == prb[..., :1]).all(-1))          # [B, nb]
+            sup_cols += [sup_rows(buni.to(bmin.dtype)), sup_rows(sgb[..., 0]),
+                         sup_rows(prb[..., 0])]
         sup_tab = torch.cat(sup_cols, dim=-1)               # [B, ns, C*8]
-        ii = torch.arange(64, device=dev) // 8
-        jj = torch.arange(64, device=dev) % 8
-
-        def overlap(m, A_, B_):
-            for k in range(3):
-                m = m & (_eb(B_[..., k * 8:(k + 1) * 8])
-                         <= _ea(A_[..., (3 + k) * 8:(4 + k) * 8])) \
-                    & (_eb(B_[..., (3 + k) * 8:(4 + k) * 8])
-                       >= _ea(A_[..., k * 8:(k + 1) * 8]))
-            return m
-
-        def blk_mask(si_, sj_, valid_):
-            """[B, N] superblock pairs -> [B, N, 64] surviving block pairs
-            (AABB overlap, rank order, conservative uniform-part filter)."""
-            ba_ = si_[..., None] * _SUP + ii
-            bb_ = sj_[..., None] * _SUP + jj
-            m = valid_[..., None] & (ba_ <= bb_) & (ba_ < nb) & (bb_ < nb)
-            A_, B_ = _rows(sup_tab, si_), _rows(sup_tab, sj_)
-            m = overlap(m, A_, B_)
-            if with_parts:
-                ua = _ea(A_[..., 48:56] > 0.5)
-                ub = _eb(B_[..., 48:56] > 0.5)
-                m = m & ~((ua & ub) & self._rel_drop(
-                    _ea(A_[..., 56:64]), _ea(A_[..., 64:72]),
-                    _eb(B_[..., 56:64]), _eb(B_[..., 64:72])))
-            return m
-
-        mb = blk_mask(si, sj, validS)                       # [B, Ps, 64]
-        hit_s = mb.any(dim=-1)
+        mb = self._blk_mask(sup_tab, st["si"], st["sj"], st["validS"])
+        hit_s = mb.any(dim=-1)                              # [B, Ps]
         posHS, validHS = _compact(hit_s, self.Phs)
-        si_h = torch.gather(si, 1, posHS)
-        sj_h = torch.gather(sj, 1, posHS)
-        mb_h = blk_mask(si_h, sj_h, validHS)                # [B, Phs, 64]
+        si_h = torch.gather(st["si"], 1, posHS)
+        sj_h = torch.gather(st["sj"], 1, posHS)
+        return {"hit_s": hit_s, "si_h": si_h, "sj_h": sj_h,
+                "mb_h": self._blk_mask(sup_tab, si_h, sj_h, validHS)}
 
-        # ---- level 2: triangle refinement on packed [B, nb, Cb*8] rows
+    def _step_level2(self, st):
+        """Triangle-hit detection at superblock-pair granularity: which
+        block pairs of the level-1 survivors carry >= 1 surviving triangle
+        pair ([B, Phs, 8j, 8ti, 8tj] slabs, one per A-side block) ->
+        hit_bp [B, Phs, 64], and the packed block rows blk_tab
+        [B, nb, Cb*8] the final step reads."""
+        amin_s, amax_s = st["amin_s"], st["amax_s"]
+        si_h, sj_h, mb_h = st["si_h"], st["sj_h"], st["mb_h"]
+        B, nb, ns, nbp = amin_s.shape[0], self.nb, self.ns, self.nbp
+        dev = amin_s.device
+        with_parts = self.segm is not None
         blk_cols = [amin_s[..., k].reshape(B, nb, _BLK) for k in range(3)] \
             + [amax_s[..., k].reshape(B, nb, _BLK) for k in range(3)]
         if with_parts:
-            blk_cols += [sgb, prb]
+            blk_cols += [st["segm_sp"].reshape(B, nb, _BLK),
+                         st["parents_sp"].reshape(B, nb, _BLK)]
         blk_tab = torch.cat(blk_cols, dim=-1)               # [B, nb, Cb*8]
         Cb = blk_tab.shape[-1] // _BLK
         empty_row = [_BIG] * 3 + [-_BIG] * 3 + ([-1.0, -3.0] if with_parts else [])
@@ -421,23 +474,6 @@ class CollisionFn:
             [blk_tab, empty.expand(B, nbp - nb, Cb * _BLK)], dim=1
         ).reshape(B, ns, _SUP * Cb * _BLK)
 
-        def tri_mask(bi_, bj_, valid_):
-            """[B, N] block pairs -> [B, N, 64] surviving triangle pairs
-            (AABB overlap, rank order, exact FilterFaces part test)."""
-            ra_ = bi_[..., None] * _BLK + ii
-            rb_ = bj_[..., None] * _BLK + jj
-            m = valid_[..., None] & (ra_ < rb_)
-            A_, B_ = _rows(blk_tab, bi_), _rows(blk_tab, bj_)
-            m = overlap(m, A_, B_)
-            if with_parts:
-                m = m & ~self._rel_drop(
-                    _ea(A_[..., 48:56]), _ea(A_[..., 56:64]),
-                    _eb(B_[..., 48:56]), _eb(B_[..., 56:64]))
-            return m
-
-        # ---- hit detection at superblock-pair granularity: which block
-        # pairs carry >= 1 surviving triangle pair ([B, Phs, 8j, 8ti, 8tj]
-        # slabs, one per A-side block)
         Phs = self.Phs
         A8 = _rows(blk_tab8, si_h).reshape(B, Phs, _SUP, Cb, _BLK)
         B8 = _rows(blk_tab8, sj_h).reshape(B, Phs, _SUP, Cb, _BLK)
@@ -461,11 +497,30 @@ class CollisionFn:
                     Ai[:, :, None, Cb - 2, :, None], Ai[:, :, None, Cb - 1, :, None],
                     Bk[Cb - 2], Bk[Cb - 1])
             hit_cols.append(m.any(dim=(3, 4)))             # [B, Phs, 8j]
-        hit_bp = torch.cat(hit_cols, dim=-1)                # [B, Phs, 64]
+        return {"blk_tab": blk_tab, "hit_bp": torch.cat(hit_cols, dim=-1)}
 
-        # ---- final compaction: hit-carrying rows, then block pairs, then
-        # triangle pairs
-        Phr = min(self.Ph, Phs)
+    def _tri_mask(self, blk_tab, bi_, bj_, valid_):
+        """[B, N] block pairs -> [B, N, 64] surviving triangle pairs (AABB
+        overlap, rank order, exact FilterFaces part test)."""
+        ii, jj = _pair_cols(blk_tab.device)
+        ra_ = bi_[..., None] * _BLK + ii
+        rb_ = bj_[..., None] * _BLK + jj
+        m = valid_[..., None] & (ra_ < rb_)
+        A_, B_ = _rows(blk_tab, bi_), _rows(blk_tab, bj_)
+        m = _overlap(m, A_, B_)
+        if self.segm is not None:
+            m = m & ~self._rel_drop(
+                _ea(A_[..., 48:56]), _ea(A_[..., 56:64]),
+                _eb(B_[..., 48:56]), _eb(B_[..., 56:64]))
+        return m
+
+    def _step_final(self, st):
+        """The final compactions: hit-carrying rows, then block pairs, then
+        triangle pairs -> the triangle masks mt_h [B, Ph, 64] and the first
+        P pairs as sorted ranks (ra, rb, valid_t [B, P])."""
+        hit_bp, si_h, sj_h = st["hit_bp"], st["si_h"], st["sj_h"]
+        B, nb = hit_bp.shape[0], self.nb
+        Phr = min(self.Ph, self.Phs)
         rowH, validRH = _compact(hit_bp.any(dim=-1), Phr)
         hit_rows = _rows(hit_bp, rowH) & validRH[..., None]  # [B, Phr, 64]
         posH, validH = _compact(hit_rows.reshape(B, -1), self.Ph)
@@ -475,28 +530,21 @@ class CollisionFn:
                            max=nb - 1)
         bj_h = torch.clamp(torch.gather(sj_h, 1, pih) * _SUP + wbh % _SUP,
                            max=nb - 1)
-        mt_h = tri_mask(bi_h, bj_h, validH)                 # [B, Ph, 64]
+        mt_h = self._tri_mask(st["blk_tab"], bi_h, bj_h, validH)
         posT, validT = _compact(mt_h.reshape(B, -1), self.P)
         th, wt = posT // 64, posT % 64
-        ra_f = torch.gather(bi_h, 1, th) * _BLK + wt // _BLK
-        rb_f = torch.gather(bj_h, 1, th) * _BLK + wt % _BLK
-        counts = {
-            "superblock": (ms.sum(dim=(1, 2)), self.Ps),
-            "hit_superblock": (hit_s.sum(dim=1), Phs),
-            "hit": (hit_bp.sum(dim=(1, 2)), self.Ph),
-            "final": (mt_h.sum(dim=(1, 2)), self.P),
-        }
-        return (ra_f, rb_f, validT), counts
+        return {"mt_h": mt_h,
+                "ra": torch.gather(bi_h, 1, th) * _BLK + wt // _BLK,
+                "rb": torch.gather(bj_h, 1, th) * _BLK + wt % _BLK,
+                "valid_t": validT}
 
-    def _sorted_pack_of(self, order):
-        return self.faces[order]                            # [B, F, 3]
-
-    def _resolve_ranks(self, ra, rb, valid, order, sorted_pack):
+    def _step_narrow_tris(self, st):
         """Deduplicate the 2P surviving ranks to <= T unique triangles,
         resolve their corner ids once, and store each pair side as an
-        index into that list.  Pairs whose triangle overflows T drop
-        (valid &= matched).  -> (the fields of `make_aux` in its order,
-        distinct-triangle count)."""
+        index into that list -> tri_corners [B, T, 3], pa, pb [B, P],
+        valid [B, P] (pairs whose triangle overflows T drop) and n_tris [B],
+        the distinct triangles."""
+        ra, rb, valid = st["ra"], st["rb"], st["valid_t"]
         F, Fp, T = self.F, self.Fp, self.T
         ra_v = torch.where(valid, ra, Fp)                   # sentinel sorts last
         rb_v = torch.where(valid, rb, Fp)
@@ -506,7 +554,7 @@ class CollisionFn:
             dim=1) & (s < Fp)
         pos, uvalid = _compact(is_new, T)
         uniq = torch.where(uvalid, torch.gather(s, 1, pos), F - 1)   # [B, T]
-        tri_corners = _rows(sorted_pack, torch.clamp(uniq, max=F - 1))
+        tri_corners = _rows(st["sorted_pack"], torch.clamp(uniq, max=F - 1))
         # Valid unique ranks are ascending, distinct and first; padding
         # above every rank keeps the row sorted for searchsorted, which
         # then finds the one equal entry (argmax of the equality in JAX).
@@ -519,46 +567,52 @@ class CollisionFn:
 
         pa, ma = side_index(ra)
         pb, mb = side_index(rb)
-        return ((tri_corners, pa, pb, valid & ma & mb, order, sorted_pack),
-                is_new.sum(dim=1))
+        return {"tri_corners": tri_corners, "pa": pa, "pb": pb,
+                "valid": valid & ma & mb, "n_tris": is_new.sum(dim=1)}
+
+    def _step_row_plans(self, st):
+        """-> aux: the `CollisionAux` of the broad phase (the row plans of
+        its two gather levels)."""
+        return {"aux": make_aux(st["tri_corners"], st["pa"], st["pb"],
+                                st["valid"], st["order"], st["sorted_pack"])}
 
     @torch.no_grad()
     def candidate_pairs(self, vertices):
         """-> (idx_a [B, P], idx_b [B, P] face ids, valid [B, P])."""
-        order = self.morton_order(vertices)
-        (ra, rb, valid), _ = self._funnel(*self._sorted_tables(vertices, order))
-        P = ra.shape[1]
-        oo = torch.gather(order, 1, torch.clamp(torch.cat([ra, rb], 1),
-                                                max=self.F - 1))
-        return oo[:, :P], oo[:, P:], valid
+        st = self.run_steps({"vertices": vertices},
+                            self.BUILD_STEPS[:self.BUILD_STEPS.index("final") + 1])
+        P = st["ra"].shape[1]
+        oo = torch.gather(st["order"], 1, torch.clamp(
+            torch.cat([st["ra"], st["rb"]], 1), max=self.F - 1))
+        return oo[:, :P], oo[:, P:], st["valid_t"]
 
     @torch.no_grad()
     def saturation(self, vertices) -> dict:
         """Survivors against budgets at every level, {level: ([B], budget)},
         'narrow_tris' included.  A count equal to its budget means that
         level drops pairs for this pose."""
-        order = self.morton_order(vertices)
-        (ra, rb, valid), counts = self._funnel(*self._sorted_tables(vertices, order))
-        _, n_tris = self._resolve_ranks(ra, rb, valid, order,
-                                        self._sorted_pack_of(order))
-        return {**counts, "narrow_tris": (n_tris, self.T)}
+        st = self.run_steps({"vertices": vertices}, self.BUILD_STEPS[:-1])
+        return {
+            "superblock": (st["ms"].sum(dim=(1, 2)), self.Ps),
+            "hit_superblock": (st["hit_s"].sum(dim=1), self.Phs),
+            "hit": (st["hit_bp"].sum(dim=(1, 2)), self.Ph),
+            "final": (st["mt_h"].sum(dim=(1, 2)), self.P),
+            "narrow_tris": (st["n_tris"], self.T),
+        }
 
     @torch.no_grad()
     def build(self, vertices) -> CollisionAux:
         """Broad phase as a reusable aux, Morton order included."""
-        order = self.morton_order(vertices)
-        (ra, rb, valid), _ = self._funnel(*self._sorted_tables(vertices, order))
-        return make_aux(*self._resolve_ranks(ra, rb, valid, order,
-                                             self._sorted_pack_of(order))[0])
+        return self.run_steps({"vertices": vertices}, self.BUILD_STEPS)["aux"]
 
     @torch.no_grad()
     def build_refresh(self, vertices, aux: CollisionAux) -> CollisionAux:
         """Broad phase under the previous aux's Morton order (no sort).
         The superblock level is all-pairs, so the result is exact up to the
         budgets for any order; a stale order only loosens the groupings."""
-        (ra, rb, valid), _ = self._funnel(*self._sorted_tables(vertices, aux.order))
-        return make_aux(*self._resolve_ranks(ra, rb, valid, aux.order,
-                                             aux.sorted_pack)[0])
+        st = {"vertices": vertices, "order": aux.order,
+              "sorted_pack": aux.sorted_pack}
+        return self.run_steps(st, self.REFRESH_STEPS)["aux"]
 
     # ---- narrow phase --------------------------------------------------
 

@@ -26,6 +26,10 @@ collision-off fit on `synthetic_model`.
 has (an SMPL-X .npz, a part segmentation, a VPoser checkpoint, images,
 OpenPose keypoint JSONs, ExPose and PIXIE results), for `app.run` and
 `python -m smplifyx_torch.cli`.
+
+`video_problem` builds the JAX package's batched video-sequence example
+(`examples/video_batch.py`) on the example's synthetic model or, at full
+width, on the slice's model.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from smplifyx_torch.models.joint_mapping import model_to_annotation
 from smplifyx_torch.models.sparse import build_joints_model
 from smplifyx_torch.models.vposer import random_params
 from smplifyx_torch.ops.camera import CameraParams, project_points
+from smplifyx_torch.ops.collision import make_collision_fn, synthetic_part_segm
 from smplifyx_torch.ops.rotation import batch_rodrigues
 from smplifyx_torch.session import _identity, build_fit_session
 from smplifyx_torch.utils.config import load_config
@@ -277,6 +282,124 @@ def multihost_problem(batch: int, num_verts: int = 64, device="cuda") -> dict:
                 body=t(np.zeros((B, 63)))),
         decode_body=_identity, joint_map=joint_map,
         edge_idxs=torch.as_tensor([[5, 12], [2, 9]], device=dev))
+
+
+VIDEO_EDGES = ((5, 12), (2, 9))     # the guess-init torso edges
+
+
+@dataclass
+class VideoProblem:
+    """A batched video sequence and everything `fit_batch` takes for it
+    (`video_problem`)."""
+
+    model: SMPLXModel
+    joints_model: object
+    settings: FitSettings
+    options: FitOptions
+    schedule: object            # StageWeights, 3 body stages
+    frames: FrameData
+    x0: torch.Tensor            # [B, D] zeros
+    joint_map: torch.Tensor     # [K] coco25 with hands, face and contour
+    edge_idxs: torch.Tensor     # [2, 2]
+    collision_fn: object        # ops/collision.py CollisionFn
+    gt: BodyParams              # the sequence's poses
+    camera: CameraParams        # the cameras that saw them
+    x_gt: torch.Tensor          # [B, D] the poses and camera translations packed
+    gt_vertices: torch.Tensor   # [B, V, 3] ground-truth meshes
+    gt_joints: torch.Tensor     # [B, J, 3] ground-truth skeleton joints
+    decode_body: object = _identity
+
+    @property
+    def device(self) -> torch.device:
+        return self.x0.device
+
+
+def video_problem(num_frames: int, num_verts: int = 1024,
+                  model_kind: str = "synthetic", device="cuda") -> VideoProblem:
+    """The batched video sequence of the JAX package's
+    `examples/video_batch.py`, built in its order: a smooth sinusoidal
+    body-pose track over `num_frames` frames (`freq` and `phase` from
+    `default_rng(0)` and `(1)`, 0.15 sin(freq t + phase) over
+    linspace(0, 2 pi, B)) seen 4 m away (focal 1000, centre (320, 240)),
+    its 2D joints through `smplx_forward` and `project_points`, every
+    keypoint with confidence 1, a zero x0, three body stages with the
+    collision term in each (`coll_loss_weights` [0, 0.1, 1]), the JAX
+    LBFGSConfig defaults (strong Wolfe, a broad phase every iteration) at
+    40 iterations per stage (20 for the camera), and the collision term at
+    sigma 1e-3 with the part pairs "9,16" and "9,17" ignored.
+
+    `model_kind` "synthetic" is the example itself:
+    `synthetic_model(num_verts, seed=0)` and `synthetic_part_segm(F,
+    seed=2)`; its random faces saturate the broad phase's budgets at the
+    example's width, as in JAX.  "slice" puts the sequence on
+    `slice_model(num_verts)` with `slice_part_segm`, whose local faces keep
+    every budget below saturation at full width (V=10475)."""
+    dev = resolve_device(device)
+    full_f32_matmuls()
+    B = num_frames
+    if model_kind == "synthetic":
+        model = synthetic_model(num_verts=num_verts, seed=0, device=dev)
+        segm, parents = synthetic_part_segm(int(model.faces.shape[0]), seed=2)
+    elif model_kind == "slice":
+        model = slice_model(num_verts, dev)
+        segm, parents = slice_part_segm(model)
+    else:
+        raise ValueError(f"model_kind={model_kind!r}: 'synthetic' or 'slice'")
+    settings = FitSettings(interpenetration=True)
+    joint_map = torch.as_tensor(
+        model_to_annotation("smplx", True, True, True, "coco25"),
+        dtype=torch.int64, device=dev)
+    K = joint_map.shape[0]
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    # ---- animate: smooth sinusoidal pose trajectory
+    tt = np.linspace(0, 2 * np.pi, B, dtype=np.float32)[:, None]
+    freq = np.random.default_rng(0).uniform(0.5, 2.0, (1, 63)).astype(np.float32)
+    phase = np.random.default_rng(1).uniform(0, np.pi, (1, 63)).astype(np.float32)
+    poses = 0.15 * np.sin(freq * tt + phase)
+    gt = dataclasses.replace(BodyParams.zeros(B, device=dev), body_pose=t(poses))
+    cam_t = t(np.tile([[0.0, 0.0, 4.0]], (B, 1)))
+    focal = t(np.full((B, 2), 1000.0))
+    center = t(np.broadcast_to(np.asarray([320.0, 240.0]), (B, 2)))
+    camera = CameraParams(torch.eye(3, device=dev).expand(B, 3, 3), cam_t,
+                          focal, center)
+    with torch.no_grad():
+        out = smplx_forward(model, gt, joint_map=joint_map)
+        gt2d = project_points(camera, out.joints)
+        skeleton = smplx_forward(model, gt).joints[:, :model.num_joints]
+
+    frames = FrameData(
+        gt_joints=gt2d, conf=t(np.ones((B, K))), joint_weights=t(np.ones((B, K))),
+        focal=focal, center=center, data_weight=t(np.full((B,), 1000.0 / 480)),
+        init_joints_mask=t(np.isin(np.arange(K), INIT_JOINTS)
+                           .astype(np.float32)[None].repeat(B, 0)),
+        trans_estimation=t(np.zeros((B, 3))),
+        depth_loss_weight=t(np.full((B,), 1e2)),
+        regression_body=t(np.zeros((B, 63))),
+    )
+    z3 = t(np.zeros((B, 3)))
+    collision_fn = make_collision_fn(
+        model.faces, segm=segm, parents=parents,
+        ign_part_pairs=["9,16", "9,17"], sigma=1e-3)
+    schedule = build_stage_schedule(
+        [4.04e2, 57.4, 4.78], coll_loss_weights=[0.0, 0.1, 1.0],
+        hand_joints_weights=[0.0, 0.0, 1.0],
+        face_joints_weights=[0.0, 0.0, 1.0], device=dev)
+    options = FitOptions(
+        lbfgs=LBFGSConfig(max_iters=40, history=12, ls_soft_accept=6),
+        camera_lbfgs=LBFGSConfig(max_iters=20, history=8, ls_soft_accept=6))
+    return VideoProblem(
+        model=model, joints_model=build_joints_model(model),
+        settings=settings, options=options, schedule=schedule,
+        frames=frames,
+        x0=pack(settings, cam_t=z3, global_orient=z3, body=t(np.zeros((B, 63)))),
+        joint_map=joint_map,
+        edge_idxs=torch.as_tensor(VIDEO_EDGES, device=dev),
+        collision_fn=collision_fn, gt=gt, camera=camera,
+        x_gt=pack(settings, cam_t=cam_t, global_orient=z3, body=gt.body_pose),
+        gt_vertices=out.vertices, gt_joints=skeleton)
 
 
 def slice_model(num_verts: int = SLICE_VERTS, device="cuda"):

@@ -34,6 +34,7 @@ import torch
 from smplifyx_torch.models.sparse import build_joints_model
 from smplifyx_torch.ops import lbs, nvcc
 from smplifyx_torch.problem import slice_model
+from smplifyx_torch.utils.timing import card_name
 
 COPY_SOURCE = r"""
 #include <cuda_runtime.h>
@@ -105,9 +106,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("lbs_limits times kernels on a CUDA card")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    print(card_name(), flush=True)
     libs = build(Path(args.out))
     model = slice_model(device="cuda")
     jm = build_joints_model(model)

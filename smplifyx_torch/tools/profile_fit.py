@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import torch
@@ -34,6 +33,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from smplifyx_torch.ops.gather import row_plan
 from smplifyx_torch.problem import build_slice
+from smplifyx_torch.utils.timing import card_name, kernel_events, profile_summary
+
+TOP = 12            # kernels kept in top_kernels
 
 
 def main(argv=None) -> int:
@@ -58,11 +60,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall_profiled = time.perf_counter() - t0
     averages = prof.key_averages()
-    events = [e for e in averages
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    launches = sum(e.count for e in events)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    events = kernel_events(prof)
+    summary = profile_summary(prof, TOP)
+    busy = summary["busy_device_ms"] / 1e3
     ours = {}
     for label, symbol in (("lbs", "lbs_kernel"), ("gather", "k2_gather_rows"),
                           ("scatter", "k3_scatter_tiles"), ("scatter_join", "k3_join")):
@@ -77,23 +77,18 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "profile_fit.txt"), "w") as f:
         f.write(averages.table(sort_by="self_device_time_total", row_limit=60))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
     evals = int(res.camera_evals.max() + res.stage_evals.amax(1).sum())
     print(json.dumps({
-        "card": smi, "B": B, "V": V,
+        "card": card_name(), "B": B, "V": V,
         "wall_s": wall, "frames_per_s": B / wall,
         "wall_profiled_s": wall_profiled, "device_busy_s": busy,
         "idle_share": 1.0 - busy / wall,
         "idle_share_profiled_wall": 1.0 - busy / wall_profiled,
-        "kernel_launches": launches, "host_reads": res.host_reads,
+        "kernel_launches": summary["launches"], "host_reads": res.host_reads,
         "max_lane_evals": evals,
-        "launches_per_eval": launches / evals,
+        "launches_per_eval": summary["launches"] / evals,
         "hand_written_kernels": ours,
-        "top_kernels": [{"name": e.key[:90], "count": e.count,
-                         "device_ms": e.self_device_time_total / 1e3}
-                        for e in top],
+        "top_kernels": summary["top"],
     }))
     return 0
 

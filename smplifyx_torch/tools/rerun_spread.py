@@ -30,7 +30,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import warnings
 
 # cuBLAS needs a fixed workspace to be deterministic; it is read when cuBLAS
@@ -48,6 +47,7 @@ from smplifyx_torch.problem import (  # noqa: E402
     ground_truth_meshes,
     lane_errors_mm,
 )
+from smplifyx_torch.utils.timing import card_name  # noqa: E402
 
 
 class _IndexAddPairGather(_PairGather):
@@ -108,9 +108,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("rerun_spread measures the card: no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = card_name()
     session, model, jm, frames, x0 = build_slice(args.batch)
     kernel_fn = session.collision_fn
     losses = {}

@@ -7,6 +7,10 @@ Counterpart of `smplifyx_tpu/utils/timing.py`:
     time.time, as the reference times its stages);
   * `trace`: `torch.profiler` around a block, written as a Chrome trace
     (`trace.json` under the given folder);
+  * `profile_summary`: a finished torch.profiler run summed (busy ms,
+    launches and the names with the most time), `kernel_events` its CUDA
+    kernels, `kernel_name` a kernel's name without its parameter list;
+  * `card_name`: the card's name and power limit from nvidia-smi;
   * `FitStats`: per-batch loss and evaluation summaries from `FitResult`.
 """
 
@@ -15,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import os
 import os.path as osp
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -59,6 +64,60 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(osp.join(log_dir, "trace.json"))
+
+
+def kernel_events(prof) -> list:
+    """The CUDA kernels of a finished torch.profiler run, one averaged
+    event per kernel name."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_name(key: str) -> str:
+    """A kernel's profiler name without the leading `void` and the
+    parameter list; the template arguments, which tell one elementwise
+    kernel from another (the functor), stay."""
+    if not key.startswith("void "):
+        return key
+    name, depth = key[5:], 0
+    for i, c in enumerate(name):
+        if c == "<":
+            depth += 1
+        elif c == ">":
+            depth -= 1
+        elif c == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def profile_summary(prof, top: int, device: bool = True) -> dict:
+    """A finished torch.profiler run summed: the CUDA kernels' self times
+    (device=True) or the host ops' (device=False) -> {busy_<clock>_ms,
+    launches (kernels) or ops (host ops), top: the `top` names with the
+    most time, each with its count and ms}."""
+    if device:
+        clock, events = "device", kernel_events(prof)
+
+        def us(e):
+            return e.self_device_time_total
+    else:
+        clock, events = "host", list(prof.key_averages())
+
+        def us(e):
+            return e.self_cpu_time_total
+    ranked = sorted(events, key=lambda e: -us(e))[:top]
+    return {f"busy_{clock}_ms": sum(us(e) for e in events) / 1e3,
+            "launches" if device else "ops": sum(e.count for e in events),
+            "top": [{"name": kernel_name(e.key), "count": e.count,
+                     f"{clock}_ms": us(e) / 1e3} for e in ranked]}
+
+
+def card_name() -> str:
+    """The card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 @dataclass
