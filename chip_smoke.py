@@ -82,8 +82,36 @@ command line at 32 frames in a subprocess (`video_cli`).  The
 `--stages --apply`: every component, broad-phase step and narrow-phase
 part on the device, with each level's saturation.
 
-After the collision-on, collision-off, first-order and app paths the
-`quality` phase holds the fit's meshes
+The `classic` phase runs the command line with the classic SMPLify-X
+preset (`cfg/fit_smplx_smplifyx.yaml`: five body stages, VPoser from the
+zero latent, no regression or camera prior, the collision term in stages
+3-4) on the app path's files: one frame (the reference fits one image per
+process) and 128 frames, each twice, bit-equal, the second timed with its
+evaluations per stage, host reads, `Timer` spans and launches.  The
+`halpe` phase runs the Halpe preset (`cfg/fit_smplx_combined_halpe.yaml`)
+the same way on 128 frames of Halpe-26 keypoint JSONs
+(`write_app_inputs(..., keypoint_format="halpe")`).
+
+Every CPU refit (the lane references of collision_on and collision_off,
+the first-order lanes, the app's, classic's and halpe's first frames)
+runs in one spawned child process (`cpu_refits`), started right after the
+build, before the card's first fit, in the order the phases read the
+results, with the card process's thread count at a lower priority: it
+fits the card's own lanes (each path's problem built on the card first,
+`refit_inputs`; the phase's own build must give the same bits) or writes
+the same files (the same digest) and runs `app.run` on them.  Each phase
+waits for its result (at most REFIT_WAIT_S) where it reads it.  The
+classic preset's final losses move past 5% at the median of its 4 frames
+under f32 rounding alone (the child refits them with the keypoints one
+ulp up, `classic_one_ulp`); where that witness passes the bound, its
+camera and body stages before the collision term are held at the median
+instead, and the last stage's energy and gradient at the card's x are
+held to the CPU's (both presets).  The `cpu_refits` line gives when each
+refit started and ended beside the card's collision_on seconds per fit;
+every phase line carries `t_s`, its seconds since the start.
+
+After the collision-on, collision-off, first-order, app, classic and
+halpe paths the `quality` phase holds the fit's meshes
 against the problem's ground truth through `evaluation/metrics.py` on the
 card (PA-V2V in mm over all vertices and per part of
 `synthetic_part_vertex_ids`, PA-MPJPE over the skeleton joints) and
@@ -92,7 +120,8 @@ requires the same numbers from the CPU on the same arrays.  Last, the
 (overlays per stage, the VPoser pose grid, the pickles' "stages"), fits
 the same batch stage by stage through `viz/live.py::stream_fit`, and asks
 the live viewer (`viz/viewer.py::serve_live_viewer`, on a thread on
-127.0.0.1) for its page and its /version.
+127.0.0.1) for its page and its /version.  The `classic` and `halpe`
+phases come after it.
 
 Each path's kernel launch counts are set to 0 just before its timed fit
 and read just after (K1's split into full-mesh and landmark-subset
@@ -100,14 +129,14 @@ launches); the two fits of each path must end bit-equal, neither may
 build a skinning plan (the models carry them: `lbs_plan`), and the
 collision-on fit must build two row plans per broad phase and none per
 gradient; a sample of each path's lanes is fitted again through the
-plain versions on the CPU.  K1 is also held bit-equal to itself with a
+plain versions on the CPU by the refit process.  K1 is also held bit-equal to itself with a
 plan of every column (the dense loop), and its rows carry the bound of
 this W's nonzeros beside the dense one and the time of the torch-op VJP.  Each phase prints one JSON line; the
 card's name and power limit are printed as nvidia-smi gives them; the
 `kernels` line comes just before the last line, which is
 {"ok": true, "device": {...}}.  Any failed check raises and the script
-exits non-zero without that line.  Without a CUDA card, or outside the
-repository, it fails.
+exits non-zero without that line, the refit process stopped.  Without a
+CUDA card, or outside the repository, it fails.
 """
 
 from __future__ import annotations
@@ -219,6 +248,30 @@ VIDEO_CLI_TIMEOUT_S = 300
 # The collision_profile phase: tools/profile_collision.py at the doubled
 # batch of the main path's collision stages.
 PROFILE_BATCH = 256
+# The classic and halpe phases: the command line on APP_FRAMES frames of
+# `write_app_inputs` (Halpe-26 JSONs for halpe), collision on, with
+# APP_CPU_FRAMES of them refitted on the CPU (median within 5%); classic
+# also on one frame, the reference's unit of work.
+PRESET_PATHS = {"app": ("fit_smplx_combined_vposer_coco25.yaml", "coco25"),
+                "classic": ("fit_smplx_smplifyx.yaml", "coco25"),
+                "halpe": ("fit_smplx_combined_halpe.yaml", "halpe")}
+# The CPU refits of every path, in the order the card's phases read them:
+# one spawned child process runs them all, started before the card's first
+# fit, so they overlap the card's phases.  It fits the card's own lanes
+# (built on the card first, `refit_inputs`) or writes the same files, and
+# "classic_one_ulp" refits classic's frames with their 2D keypoints one
+# ulp up: the witness of how far f32 rounding alone moves that fit.
+REFIT_JOBS = ("collision_on", "collision_off", "first_order_adam",
+              "first_order_sgd", "first_order_rmsprop", "app", "classic",
+              "classic_one_ulp", "halpe")
+REFIT_WAIT_S = 900      # the longest a phase waits for its refit
+# The child keeps the card process's intra-op thread count, so its fits are
+# the bits an in-process refit gives: the CPU's f32 sums depend on the
+# count, and the collision-on and VPoser fits turn a last-bit difference
+# into another minimum (classic_one_ulp shows how far).  It runs at a lower
+# priority instead.
+REFIT_NICE = 10
+T0 = time.time()        # the run's start; every phase line carries t_s
 
 # Data-sheet peaks (dense, no sparsity): FP32 on the CUDA cores, memory rate.
 PEAKS = {  # name fragment -> (FP32 FLOP/s, bytes/s)
@@ -230,6 +283,8 @@ PEAKS = {  # name fragment -> (FP32 FLOP/s, bytes/s)
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.time() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -924,7 +979,7 @@ def phase_main_path(label, session, model, jm, frames, x0, needs):
     if plan_builds != 2 * sum(broad.values()):
         raise AssertionError(f"the {label} fit built {plan_builds} row plans "
                              f"for {broad} broad phases")
-    return res, main_launches, plan_builds
+    return res, main_launches, plan_builds, fit_s
 
 
 def stage2_energy(session, model, frames, x):
@@ -943,24 +998,253 @@ def stage2_energy(session, model, frames, x):
     return f.detach(), g
 
 
-def phase_lane_reference(label, card_session, card_model, res, frames, x0,
-                         **overrides):
-    """The first lanes of a path's problem (`LANE_SAMPLE`), fitted again
-    through the plain versions on the CPU; their final losses against the
-    card's, with the bounds set out at `LANE_SAMPLE`.  The stage-2 energy
-    and gradient of both devices at the card's final x of those lanes must
-    agree to rounding.  Returns the CPU fit, its session and model."""
+# ------------------------------------------------------------ CPU refits
+
+
+def preset_path(label):
+    from smplifyx_torch.problem import APP_PRESET
+
+    return os.path.join(os.path.dirname(APP_PRESET), PRESET_PATHS[label][0])
+
+
+def app_argv(preset, overrides):
+    return ["--config", preset, *[f"--{k}={v}" for k, v in overrides.items()]]
+
+
+def inputs_digest(root):
+    """sha256 over the files `write_app_inputs` wrote under root: the arrays
+    of .npz files and the tensors of .pt files (their archives carry
+    write times), the bytes of every other file."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for d, _, files in sorted(os.walk(root)):
+        for f in sorted(files):
+            path = os.path.join(d, f)
+            h.update(os.path.relpath(path, root).encode())
+            if f.endswith(".npz"):
+                with np.load(path) as z:
+                    for k in sorted(z.files):
+                        h.update(k.encode() + np.ascontiguousarray(z[k]).tobytes())
+            elif f.endswith(".pt"):
+                for k, v in sorted(torch.load(path).items()):
+                    h.update(k.encode() + v.numpy().tobytes())
+            else:
+                with open(path, "rb") as fh:
+                    h.update(fh.read())
+    return h.hexdigest()
+
+
+LANE_JOBS = {  # lane refit -> (batch, lanes, overrides of build_slice)
+    "collision_on": (None, LANE_SAMPLE["collision_on"], {}),
+    "collision_off": (None, LANE_SAMPLE["collision_off"],
+                      {"interpenetration": False}),
+    **{f"first_order_{k}": (FIRST_ORDER_BATCH, FIRST_ORDER_CPU_LANES, v)
+       for k, v in FIRST_ORDER.items()}}
+
+
+def refit_inputs():
+    """The lanes each lane refit fits: the first lanes of the card's own
+    problem (`build_slice` on the card, as `setup` builds it), on the CPU.
+    The card builds the same bits again when its phase sets up."""
+    import torch
+
+    from smplifyx_torch.problem import SLICE_BATCH, build_slice
+
+    out = {}
+    for job, (batch, lanes, overrides) in LANE_JOBS.items():
+        _, _, _, frames, x0 = build_slice(batch or SLICE_BATCH, **overrides)
+        out[job] = (frames.map(lambda a: a[:lanes].cpu()), x0[:lanes].cpu())
+    torch.cuda.empty_cache()
+    return out
+
+
+def _refit_lanes(job, frames, x0):
+    """The card's lanes of a path, fitted on the CPU (the plain versions)
+    by the path's session built there."""
     from smplifyx_torch.models.sparse import build_joints_model
+    from smplifyx_torch.problem import slice_session
+
+    session, model = slice_session(device="cpu", **LANE_JOBS[job][2])
+    t0 = time.perf_counter()
+    res = session.fit(model, build_joints_model(model), frames, x0)
+    return {"fit_s": time.perf_counter() - t0, "loss": res.loss.numpy(),
+            "x": res.x.numpy(), "flipped": res.flipped.numpy()}
+
+
+def _refit_app(label, one_ulp=False):
+    """APP_CPU_FRAMES frames of the `label` path's files on the CPU,
+    through `app.run` with the path's preset: the final losses, and the
+    camera and body stages' losses.  `one_ulp` moves the prepared 2D
+    keypoints one ulp up (the witness of how far f32 rounding alone
+    moves the fit)."""
+    import tempfile
+
+    import torch
+
+    from smplifyx_torch.app import run
+    from smplifyx_torch.problem import write_app_inputs
+    from smplifyx_torch.session import FitSession
+    from smplifyx_torch.utils.config import parse_cli
+
+    fit = FitSession.fit
+
+    def moved(session, model, jm, frames, x0):
+        g = frames.gt_joints
+        return fit(session, model, jm, dataclasses.replace(
+            frames, gt_joints=torch.nextafter(g, torch.full_like(g, np.inf))),
+            x0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = write_app_inputs(tmp, APP_FRAMES,
+                                  keypoint_format=PRESET_PATHS[label][1])
+        digest = inputs_digest(tmp)
+        argv = app_argv(preset_path(label), inputs.overrides) + [
+            "--output_folder", os.path.join(tmp, "out")]
+        if one_ulp:
+            FitSession.fit = moved
+        counter = FitCounter()
+        try:
+            with counter:
+                t0 = time.perf_counter()
+                res = run(parse_cli(argv), max_frames=APP_CPU_FRAMES,
+                          device="cpu")
+                fit_s = time.perf_counter() - t0
+        finally:
+            FitSession.fit = fit
+        r = counter.results[0]
+        return {"fit_s": fit_s, "losses": np.asarray(res.losses),
+                "names": res.names, "inputs_digest": digest,
+                "stage_losses": torch.cat(
+                    [r.camera_loss[None], r.stage_losses]).numpy()}
+
+
+def refit(job, inputs):
+    if job in LANE_JOBS:
+        return _refit_lanes(job, *inputs[job])
+    if job.endswith("_one_ulp"):
+        return _refit_app(job[:-len("_one_ulp")], one_ulp=True)
+    return _refit_app(job)
+
+
+def cpu_refits(queue, epoch, threads, inputs):
+    """The child process: every job of REFIT_JOBS in order on the CPU with
+    `threads` intra-op threads at REFIT_NICE; puts (job, result) on the
+    queue, or (job, {"error": traceback}) and stops."""
+    import traceback
+
+    import torch
+
+    sys.stdout = sys.stderr     # the parent's standard output is its JSON
+    os.nice(REFIT_NICE)
+    torch.set_num_threads(threads)
+    for job in REFIT_JOBS:
+        start = time.time() - epoch
+        try:
+            out = refit(job, inputs)
+        except Exception:
+            queue.put((job, {"error": traceback.format_exc()}))
+            return
+        out.update(start_s=start, end_s=time.time() - epoch)
+        queue.put((job, out))
+
+
+class CpuRefits:
+    """The parent's side of `cpu_refits`: start the child with the lane
+    refits' inputs, wait (bounded) for a job's result, stop the child."""
+
+    def __init__(self, inputs):
+        import multiprocessing
+
+        import torch
+
+        ctx = multiprocessing.get_context("spawn")
+        self.queue = ctx.Queue()
+        self.inputs = inputs
+        self.threads = torch.get_num_threads()
+        self.proc = ctx.Process(target=cpu_refits, daemon=True,
+                                args=(self.queue, T0, self.threads, inputs))
+        self.proc.start()
+        self.started_s = time.time() - T0
+        self.results, self.waits = {}, {}
+
+    def get(self, job):
+        import queue
+
+        t0 = time.perf_counter()
+        while job not in self.results:
+            try:
+                name, out = self.queue.get(timeout=5)
+            except queue.Empty:
+                if not self.proc.is_alive():
+                    raise RuntimeError(
+                        f"the CPU refit process exited {self.proc.exitcode} "
+                        f"before giving {job}") from None
+                if time.perf_counter() - t0 > REFIT_WAIT_S:
+                    raise TimeoutError(f"no CPU refit of {job} after "
+                                       f"{REFIT_WAIT_S} s") from None
+                continue
+            if "error" in out:
+                raise RuntimeError(f"the CPU refit of {name} failed:\n"
+                                   f"{out['error']}")
+            self.results[name] = out
+        self.waits[job] = time.perf_counter() - t0
+        return self.results[job]
+
+    def check_inputs(self, job, frames, x0):
+        """The lanes the child fitted are the card phase's, to the bit."""
+        want_frames, want_x0 = self.inputs[job]
+        n = want_x0.shape[0]
+        same = all(np.array_equal(getattr(frames, f.name)[:n].cpu().numpy(),
+                                  getattr(want_frames, f.name).numpy())
+                   for f in dataclasses.fields(frames)) and np.array_equal(
+                       x0[:n].cpu().numpy(), want_x0.numpy())
+        if not same:
+            raise AssertionError(f"the {job} CPU refit fitted other lanes "
+                                 "than the card's")
+        return same
+
+    def stop(self):
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join(timeout=60)
+
+    def summary(self, collision_on_fit_s):
+        """When the child started and finished each refit beside the card's
+        collision_on seconds per fit, and how long each phase waited."""
+        emit({"phase": "cpu_refits", "threads": self.threads,
+              "nice": REFIT_NICE, "host_cores": os.cpu_count(),
+              "started_s": self.started_s,
+              "jobs": {k: {"start_s": v["start_s"], "end_s": v["end_s"],
+                           "fit_s": v["fit_s"], "wait_s": self.waits.get(k)}
+                       for k, v in self.results.items()},
+              "collision_on_card_fit_s": collision_on_fit_s})
+
+
+def phase_lane_reference(label, card_session, card_model, res, frames, x0,
+                         refits, **overrides):
+    """The first lanes of a path's problem (`LANE_SAMPLE`), fitted again
+    through the plain versions on the CPU by the refit process; their final
+    losses against the card's, with the bounds set out at `LANE_SAMPLE`.
+    The stage-2 energy and gradient of both devices at the card's final x
+    of those lanes must agree to rounding.  Returns the CPU fit, its
+    session and model."""
+    import types
+
+    import torch
+
     from smplifyx_torch.problem import slice_session
 
     lanes = LANE_SAMPLE[label]
     collision = card_session.collision_fn is not None
-    t0 = time.perf_counter()
+    out = refits.get(label)
+    refits.check_inputs(label, frames, x0)
+    cpu = types.SimpleNamespace(**{k: torch.as_tensor(out[k])
+                                   for k in ("loss", "x", "flipped")})
     session, model = slice_session(device="cpu", **overrides)
     cpu_frames = frames.map(lambda a: a[:lanes].cpu())
-    cpu = session.fit(model, build_joints_model(model), cpu_frames,
-                      x0[:lanes].cpu())
-    cpu_s = time.perf_counter() - t0
     card = res.loss[:lanes].cpu()
     rel = (card - cpu.loss).abs() / cpu.loss.abs()
     held = rel.median().item() if collision else rel.max().item()
@@ -970,7 +1254,9 @@ def phase_lane_reference(label, card_session, card_model, res, frames, x0,
     f_rel = ((fk.cpu() - fc).abs() / fc.abs()).max().item()
     g_err = ((gk.cpu() - gc).abs().max() / max(1.0, gc.abs().max().item())).item()
     emit({"phase": "lane_reference", "path": label, "lanes": lanes,
-          "V": int(model.lbs_weights.shape[0]), "cpu_fit_s": cpu_s,
+          "V": int(model.lbs_weights.shape[0]), "cpu_fit_s": out["fit_s"],
+          "cpu_refit_start_s": out["start_s"], "cpu_refit_end_s": out["end_s"],
+          "cpu_wait_s": refits.waits[label], "cpu_threads": refits.threads,
           "loss_card": card.tolist(), "loss_cpu": cpu.loss.tolist(),
           "rel_diff": rel.tolist(), "max_rel_diff": rel.max().item(),
           "median_rel_diff": rel.median().item(),
@@ -1034,12 +1320,14 @@ def app_losses(out_dir, names):
             ["loss"] for n in names]
 
 
-def phase_app():
+def phase_app(refits):
     """The command line on the card: the VPoser combined preset, collision
     on, B=128, V=10475, from files.  Run twice (the first warms up); the
     launch counts are set to 0 just before the second run and read just
-    after.  Returns the second run's launches and (model, settings, x,
-    losses) of its written results."""
+    after.  APP_CPU_FRAMES frames of the same files (the refit process
+    writes them again) fitted on the CPU through `app.run`: the median
+    final loss within LANE_LOSS_RTOL.  Returns the second run's launches
+    and (model, settings, x, losses) of its written results."""
     import tempfile
     import types
 
@@ -1061,6 +1349,7 @@ def phase_app():
         t0 = time.perf_counter()
         inputs = write_app_inputs(tmp, APP_FRAMES)
         inputs_s = time.perf_counter() - t0
+        digest = inputs_digest(tmp)
         ref = slice_model(SLICE_VERTS, "cpu")
         model_equal = {
             name: bool(torch.equal(getattr(ref, name), getattr(inputs.model, name)))
@@ -1074,7 +1363,7 @@ def phase_app():
 
         flags = [f"--{k}={v}" for k, v in inputs.overrides.items()]
         argv = ["--config", APP_PRESET, *flags]
-        outs = [os.path.join(tmp, f"out{i}") for i in range(3)]
+        outs = [os.path.join(tmp, f"out{i}") for i in range(2)]
 
         t0 = time.perf_counter()
         cli.main(argv + ["--output_folder", outs[0]])
@@ -1139,15 +1428,11 @@ def phase_app():
         reproj, _ = reprojection_px(view, model, batch.frames, fitted)
         del session, batch
 
-        # A few frames again on the CPU, through the same entry point.
-        t0 = time.perf_counter()
-        cpu = run(parse_cli(argv + ["--output_folder", outs[2]]),
-                  max_frames=APP_CPU_FRAMES, device="cpu")
-        cpu_s = time.perf_counter() - t0
-
+    # A few frames again on the CPU, through the same entry point.
+    cpu = refits.get("app")
     card = np.asarray(second[:APP_CPU_FRAMES])
-    cpu_rel = np.abs(cpu.losses - card) / np.abs(cpu.losses)
-    median_rel = abs(float(np.median(cpu.losses)) - float(np.median(card))) \
+    cpu_rel = np.abs(cpu["losses"] - card) / np.abs(cpu["losses"])
+    median_rel = abs(float(np.median(cpu["losses"])) - float(np.median(card))) \
         / abs(float(np.median(card)))
     jm_rows = build_joints_model(inputs.model).sub_lbs.shape[0]
     by_rows = launches["lbs_by_rows"]
@@ -1171,11 +1456,16 @@ def phase_app():
         "reproj_px_median": float(reproj.median()),
         "reproj_px_max": float(reproj.max()),
         "stats": result.stats,
-        "cpu_frames": APP_CPU_FRAMES, "cpu_run_s": cpu_s,
-        "loss_card": card.tolist(), "loss_cpu": cpu.losses.tolist(),
+        "cpu_frames": APP_CPU_FRAMES, "cpu_run_s": cpu["fit_s"],
+        "cpu_refit_start_s": cpu["start_s"], "cpu_refit_end_s": cpu["end_s"],
+        "cpu_wait_s": refits.waits["app"],
+        "cpu_inputs_equal": cpu["inputs_digest"] == digest,
+        "loss_card": card.tolist(), "loss_cpu": cpu["losses"].tolist(),
         "cpu_rel_diff": cpu_rel.tolist(), "cpu_median_rel_diff": median_rel,
     }
     emit(row)
+    if not (row["cpu_inputs_equal"] and cpu["names"] == names[:APP_CPU_FRAMES]):
+        raise AssertionError("the app's CPU refit read other files")
     if not all(model_equal.values()):
         raise AssertionError(f"the loaded model differs: {model_equal}")
     if not all(read_equal.values()):
@@ -1253,7 +1543,8 @@ def phase_quality(label, model, settings, decode_body, x, losses,
                                for k, v in card.items()
                                if k.startswith("pa_v2v_")},
            "pa_mpjpe_mm": _quantiles(card["pa_mpjpe"]),
-           "loss_pa_v2v_spearman": _spearman(losses, card["pa_v2v"].cpu()),
+           "loss_pa_v2v_spearman": (_spearman(losses, card["pa_v2v"].cpu())
+                                    if B > 1 else None),
            "card_cpu_max_abs_diff_mm": diff, "bound_mm": QUALITY_TOL_MM,
            "card_metric_s": card_s}
     if lane_ref is not None:
@@ -1463,6 +1754,263 @@ def phase_viz():
     return launches
 
 
+# ---------------------------------------------------------------- presets
+
+
+def run_cli(argv):
+    """`cli.main(argv)` on the card, the launch counts set to 0 just before
+    and read just after: (AppResult, seconds, launches, FitCounter)."""
+    import torch
+
+    from smplifyx_torch import cli
+
+    counter = FitCounter()
+    reset_counts()
+    with counter:
+        t0 = time.perf_counter()
+        result = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    return result, run_s, read_counts(), counter
+
+
+def written_fit(argv, out_dir, names):
+    """(model, settings without VPoser, x on the card) of the results the
+    command line `argv` wrote under out_dir: the pickles' parameters
+    (decoded body pose) packed without VPoser."""
+    import torch
+
+    from smplifyx_torch.fitting.checkpoint import warm_start_from_results
+    from smplifyx_torch.session import build_fit_session
+    from smplifyx_torch.utils.config import parse_cli
+
+    cfg = parse_cli(argv)
+    session = build_fit_session(cfg)
+    plain = dataclasses.replace(session.settings, use_vposer=False)
+    x, found = warm_start_from_results(os.path.join(out_dir, "results"),
+                                       names, plain)
+    if not found.all():
+        raise AssertionError(f"results missing under {out_dir}")
+    return (session.get_model(cfg.gender), plain,
+            torch.as_tensor(x, device="cuda"))
+
+
+def preset_run(label, argv, outs, frames):
+    """The command line twice on the same files (the first warms up), the
+    second timed with its launches: the two runs' losses the same bits,
+    a result pickle, mesh and vertices file per frame, finite losses, one
+    fit and no skinning plan built.  Returns the row's numbers, the second
+    run's AppResult and its launches."""
+    first = run_cli(argv + ["--output_folder", outs[0]])
+    result, run_s, launches, counter = run_cli(argv + ["--output_folder",
+                                                       outs[1]])
+    names = result.names
+    losses = [app_losses(out, names) for out in outs]
+    files = {
+        "pkl": len(result.result_files), "obj": len(result.mesh_files),
+        "ply": sum(os.path.exists(os.path.join(outs[1], "results", n,
+                                               "vertices.ply"))
+                   for n in names)}
+    fit = counter.results[0]
+    row = {
+        "B": len(names), "first_run_s": first[1], "run_s": run_s,
+        "s_per_image": run_s / len(names),
+        "frames_per_s": len(names) / run_s,
+        "fit_frames_per_s": len(names) / result.spans["fit"],
+        "spans": result.spans, "host_reads": result.host_reads,
+        "launches": launches, "fit_counts": counter.counts, "files": files,
+        "camera_evals_max": int(fit.camera_evals.max()),
+        "stage_evals_max": fit.stage_evals.amax(1).tolist(),
+        "stage_evals_median": fit.stage_evals.float().median(1).values.tolist(),
+        "rerun_bit_equal": losses[0] == losses[1],
+        "loss_median": float(np.median(losses[1])), "stats": result.stats}
+    if files != {"pkl": frames, "obj": frames, "ply": frames}:
+        raise AssertionError(f"the {label} run wrote {files} for {frames} "
+                             "frames")
+    if not row["rerun_bit_equal"]:
+        raise AssertionError(f"two {label} runs of the same files differ")
+    if not np.isfinite(losses[1]).all():
+        raise AssertionError(f"a {label} loss is not finite")
+    if counter.counts["lbs_plan"] != 0 or counter.counts["fits"] != 1:
+        raise AssertionError(f"the {label} run's fits: {counter.counts}")
+    return row, result, launches, fit
+
+
+def _median_rel(a, b):
+    """|median(a) - median(b)| / |median(b)| over the last axis."""
+    ma, mb = np.median(a, -1), np.median(b, -1)
+    return np.abs(ma - mb) / np.abs(mb)
+
+
+def last_stage_energy_card_cpu(argv, x, n):
+    """The last body stage's energy per lane (the collision term on a broad
+    phase of these vertices) and its gradient at the card's fitted x of
+    the command line's first n frames, on the card and on the CPU, each
+    from its own session and prepared batch: the largest relative value
+    difference and gradient difference per unit of scale."""
+    import torch
+
+    from smplifyx_torch.app import regression_priors
+    from smplifyx_torch.data.keypoints import create_dataset
+    from smplifyx_torch.fitting.energy import smplify_energy
+    from smplifyx_torch.fitting.prepare import prepare_batch
+    from smplifyx_torch.session import build_fit_session
+    from smplifyx_torch.utils.config import parse_cli
+
+    cfg = parse_cli(argv)
+    records = list(create_dataset(
+        format=cfg.format, data_folder=cfg.data_folder,
+        use_hands=cfg.use_hands, use_face=cfg.use_face,
+        use_face_contour=cfg.use_face_contour,
+        joints_to_ign=cfg.joints_to_ign))[:n]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        session = build_fit_session(cfg, device=dev)
+        model = session.get_model(cfg.gender)
+        batch = prepare_batch(cfg, records, session.joint_weights(),
+                              regression=regression_priors(cfg, records),
+                              vposer=session.vposer, gmm=session.gmm,
+                              device=dev)
+        S = session.schedule.num_stages
+        xx = x[:n].to(dev).clone().requires_grad_(True)
+        f = smplify_energy(
+            xx, session.settings, model, batch.frames,
+            session.schedule.stage(S - 1), S - 1, S, session.decode_body,
+            session.joint_map, gmm=session.gmm, lhand_gmm=session.lhand_gmm,
+            rhand_gmm=session.rhand_gmm,
+            collision_fn=session.collision_for(model))
+        (g,) = torch.autograd.grad(f.sum(), xx)
+        out[dev] = (f.detach().cpu(), g.cpu())
+    (fk, gk), (fc, gc) = out["cuda"], out["cpu"]
+    return {"lanes": n,
+            "value_rel_diff": float(((fk - fc).abs() / fc.abs()).max()),
+            "grad_err_per_scale": float((gk - gc).abs().max()
+                                        / max(1.0, float(gc.abs().max()))),
+            "finite": bool(torch.isfinite(fk).all() and torch.isfinite(gk).all())}
+
+
+def phase_preset(label, refits):
+    """The command line on the card with PRESET_PATHS[label]'s preset,
+    collision on, V=10475, from the files of `write_app_inputs` (Halpe-26
+    keypoint JSONs for halpe): APP_FRAMES frames run twice (`preset_run`),
+    K1 (full mesh and subset), K2 and K3 launched; APP_CPU_FRAMES of the
+    same files fitted on the CPU by the refit process, the median final
+    loss within LANE_LOSS_RTOL (or, where the CPU's own one-ulp witness
+    moves it past that, the median of every stage before the collision
+    term), the last stage's energy and gradient at the card's x of those
+    frames within the same-x bounds on both devices; `quality` on the
+    written results.  The classic preset also runs one frame (the
+    reference fits one image per process) twice, with its own `quality`.
+    Launch counts are set to 0 just before each timed run and read just
+    after.  Returns the APP_FRAMES run's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from smplifyx_torch.models.sparse import build_joints_model
+    from smplifyx_torch.problem import (SLICE_VERTS, ground_truth_meshes,
+                                        write_app_inputs)
+    from smplifyx_torch.utils.config import parse_cli
+
+    keypoint_format = PRESET_PATHS[label][1]
+    preset = preset_path(label)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        inputs = write_app_inputs(tmp, APP_FRAMES,
+                                  keypoint_format=keypoint_format)
+        inputs_s = time.perf_counter() - t0
+        digest = inputs_digest(tmp)
+        S = build_joints_model(inputs.model).sub_lbs.shape[0]
+        needs = ("lbs", "gather", "scatter", "scatter_join")
+
+        if label == "classic":
+            # one frame: frame 0's image and keypoints alone in a folder
+            one = os.path.join(tmp, "one")
+            for sub, ext in (("images", ".png"), ("keypoints", "_keypoints.json")):
+                os.makedirs(os.path.join(one, sub))
+                name = inputs.names[0] + ext
+                shutil.copy(os.path.join(inputs.overrides["data_folder"], sub,
+                                         name), os.path.join(one, sub, name))
+            argv = app_argv(preset, {**inputs.overrides, "data_folder": one})
+            outs = [os.path.join(tmp, f"one{i}") for i in range(2)]
+            row, result, launches, _ = preset_run(f"{label} one-frame",
+                                                  argv, outs, 1)
+            emit({"phase": label, "preset": os.path.basename(preset),
+                  "card": torch.cuda.get_device_name(0), "V": SLICE_VERTS,
+                  **row, "lbs_launches": _lbs_split(launches, SLICE_VERTS, S)})
+            _check_path_launches(f"{label} one-frame", launches, needs,
+                                 SLICE_VERTS, S)
+            model, settings, x = written_fit(argv, outs[1], result.names)
+            gt = tuple(a[:1] for a in ground_truth_meshes(model, APP_FRAMES))
+            phase_quality(f"{label}_one_frame", model, settings, lambda b: b,
+                          x, result.losses, gt=gt)
+
+        argv = app_argv(preset, inputs.overrides)
+        outs = [os.path.join(tmp, f"out{i}") for i in range(2)]
+        row, result, launches, fit = preset_run(label, argv, outs,
+                                                APP_FRAMES)
+        fitted = written_fit(argv, outs[1], result.names)
+        same_x = last_stage_energy_card_cpu(argv, fit.x, APP_CPU_FRAMES)
+
+    n = APP_CPU_FRAMES
+    cpu = refits.get(label)
+    card = np.asarray(result.losses[:n])
+    card_stages = torch.cat([fit.camera_loss[None],
+                             fit.stage_losses])[:, :n].cpu().numpy()
+    stage_rel = _median_rel(cpu["stage_losses"], card_stages)
+    median_rel = float(_median_rel(cpu["losses"], card))
+    # Where f32 rounding alone moves the CPU's own median past the bound
+    # (its keypoints one ulp up), the final losses cannot be compared: the
+    # stages before the collision term are held instead.
+    witness = (refits.get(f"{label}_one_ulp") if f"{label}_one_ulp"
+               in REFIT_JOBS else None)
+    witness_rel = (None if witness is None else
+                   _median_rel(witness["stage_losses"], cpu["stage_losses"]))
+    cfg_weights = parse_cli(argv).coll_loss_weights
+    plain_rows = 1 + next(i for i, w in enumerate(cfg_weights) if w > 0)
+    if witness_rel is not None and witness_rel[-1] > LANE_LOSS_RTOL:
+        held = {"stages": "camera and body stages before the collision term",
+                "rel": stage_rel[:plain_rows].tolist()}
+    else:
+        held = {"stages": "final", "rel": [median_rel]}
+    emit({"phase": label, "preset": os.path.basename(preset),
+          "card": torch.cuda.get_device_name(0), "V": SLICE_VERTS,
+          "keypoint_format": keypoint_format, "inputs_s": inputs_s, **row,
+          "lbs_launches": _lbs_split(launches, SLICE_VERTS, S),
+          "cpu_frames": n, "cpu_run_s": cpu["fit_s"],
+          "cpu_refit_start_s": cpu["start_s"], "cpu_refit_end_s": cpu["end_s"],
+          "cpu_wait_s": refits.waits[label],
+          "cpu_inputs_equal": cpu["inputs_digest"] == digest,
+          "loss_card": card.tolist(), "loss_cpu": cpu["losses"].tolist(),
+          "cpu_rel_diff": (np.abs(cpu["losses"] - card)
+                           / np.abs(cpu["losses"])).tolist(),
+          "cpu_median_rel_diff": median_rel,
+          "stage_median_card": np.median(card_stages, 1).tolist(),
+          "stage_median_cpu": np.median(cpu["stage_losses"], 1).tolist(),
+          "stage_median_rel_diff": stage_rel.tolist(),
+          "one_ulp_cpu_stage_median_rel_diff": (
+              None if witness_rel is None else witness_rel.tolist()),
+          "held": held, "bound": LANE_LOSS_RTOL,
+          "energy_at_card_x": same_x})
+    if not (cpu["inputs_digest"] == digest
+            and cpu["names"] == result.names[:n]):
+        raise AssertionError(f"the {label} CPU refit read other files")
+    if not max(held["rel"]) <= LANE_LOSS_RTOL:
+        raise AssertionError(f"the {label} CPU median losses ({held['stages']})"
+                             f" differ from the card's by {held['rel']} > "
+                             f"{LANE_LOSS_RTOL}")
+    if not (same_x["finite"]
+            and same_x["value_rel_diff"] <= SAME_X_VALUE_RTOL
+            and same_x["grad_err_per_scale"] <= SAME_X_GRAD_TOL):
+        raise AssertionError(f"the {label} energies at the card's x differ "
+                             f"on the card and the CPU: {same_x}")
+    _check_path_launches(label, launches, needs, SLICE_VERTS, S)
+    model, settings, x = fitted
+    phase_quality(label, model, settings, lambda b: b, x, result.losses)
+    return launches
+
+
 def _lbs_split(launches, V, S):
     by_rows = launches["lbs_by_rows"]
     return {"full_mesh": by_rows.get(V, 0), "subset": by_rows.get(S, 0)}
@@ -1638,19 +2186,21 @@ def start_loss(session, model, jm, frames, x0):
             collision_fn=session.collision_fn)
 
 
-def phase_first_order(name):
+def phase_first_order(name, refits):
     """One first-order optimizer (FIRST_ORDER[name]) through the entry
     points: fit twice (bit-equal), the second timed with the launch counts
     set to 0 just before it and read just after; with the collision term,
     one broad phase per collision-stage evaluation and two row plans per
     broad phase.  The final losses must be finite and below the energy at
-    the fit's start; FIRST_ORDER_CPU_LANES lanes fitted again on the CPU:
+    the fit's start; FIRST_ORDER_CPU_LANES lanes fitted again on the CPU
+    by the refit process:
     collision on, the median within LANE_LOSS_RTOL; off, the median within
     FIRST_ORDER_MEDIAN_RTOL and every lane within LANE_LOSS_RTOL.  Returns
     (launches, (session, model, result, lane_ref)) for `quality`."""
+    import types
+
     import torch
 
-    from smplifyx_torch.models.sparse import build_joints_model
     from smplifyx_torch.ops.gather import row_plan
     from smplifyx_torch.problem import slice_session
 
@@ -1681,12 +2231,12 @@ def phase_first_order(name):
     rerun_equal = bool(torch.equal(first.x, res.x)
                        and torch.equal(first.loss, res.loss))
 
+    out = refits.get(label)
+    refits.check_inputs(label, frames, x0)
+    cpu = types.SimpleNamespace(**{k: torch.as_tensor(out[k])
+                                   for k in ("loss", "x", "flipped")})
     cpu_session, cpu_model = slice_session(device="cpu", **overrides)
     n = FIRST_ORDER_CPU_LANES
-    t0 = time.perf_counter()
-    cpu = cpu_session.fit(cpu_model, build_joints_model(cpu_model),
-                          frames.map(lambda a: a[:n].cpu()), x0[:n].cpu())
-    cpu_s = time.perf_counter() - t0
     card = res.loss[:n].cpu()
     rel = (card - cpu.loss).abs() / cpu.loss.abs()
     median_rel = abs(float(card.median()) - float(cpu.loss.median())) \
@@ -1710,7 +2260,9 @@ def phase_first_order(name):
         "start_loss_median": float(start.median()),
         "lanes_below_start": int((res.loss < start).sum()),
         "stage_loss_median": res.stage_losses.median(1).values.tolist(),
-        "cpu_lanes": n, "cpu_fit_s": cpu_s, "loss_card": card.tolist(),
+        "cpu_lanes": n, "cpu_fit_s": out["fit_s"],
+        "cpu_refit_start_s": out["start_s"], "cpu_refit_end_s": out["end_s"],
+        "cpu_wait_s": refits.waits[label], "loss_card": card.tolist(),
         "loss_cpu": cpu.loss.tolist(), "cpu_rel_diff": rel.tolist(),
         "cpu_median_rel_diff": median_rel,
     }
@@ -2527,14 +3079,24 @@ def phase_k3_amortised(scatters, launches, plan_builds):
 
 
 def main() -> int:
-    import torch
-
     name = phase_device()
     here = os.path.dirname(os.path.abspath(__file__))
     os.chdir(here)
     sys.path.insert(0, here)
     peak = peaks_for(name)
     phase_build()
+    t0 = time.perf_counter()
+    refits = CpuRefits(refit_inputs())
+    emit({"phase": "cpu_refits_start", "inputs_s": time.perf_counter() - t0,
+          "jobs": REFIT_JOBS, "threads": refits.threads, "nice": REFIT_NICE})
+    try:
+        return run_phases(peak, refits)
+    finally:
+        refits.stop()
+
+
+def run_phases(peak, refits) -> int:
+    import torch
 
     from smplifyx_torch.problem import slice_session
 
@@ -2545,27 +3107,33 @@ def main() -> int:
     cpu_session, cpu_model = slice_session(device="cpu")
     phase_broad(session, model, cpu_session.collision_fn)
     phase_energy_collision(session, model, frames, x0)
-    res, launches, plan_builds = phase_main_path(
+    res, launches, plan_builds, collision_on_fit_s = phase_main_path(
         "collision_on", session, model, jm, frames, x0,
         needs=("lbs", "gather", "scatter", "scatter_join"))
     phase_k3_amortised(scatters, launches["scatter"], plan_builds)
-    lane_ref = phase_lane_reference("collision_on", session, model, res,
-                                    frames, x0)
-    phase_quality("collision_on", model, session.settings,
-                  session.decode_body, res.x, res.loss, lane_ref)
 
     # ---- the serve path: FitService over the collision-on session
     serve = phase_serve(session, model, jm, frames)
     collision_on = (session, model, jm, frames, x0)
+    on_res = res
 
     # ---- the collision-off path of the first slice
     off = dict(interpenetration=False)
     session, model, jm, frames, x0 = setup("collision_off", **off)
     phase_energy(session, model, jm, frames, x0)
-    res, _, _ = phase_main_path("collision_off", session, model, jm, frames,
-                                x0, needs=("lbs",))
+    res, _, _, _ = phase_main_path("collision_off", session, model, jm,
+                                   frames, x0, needs=("lbs",))
+
+    # ---- both paths' lanes refitted on the CPU (the refit process fitted
+    # collision_on's while the card served and fitted collision_off)
+    on_session, on_model, _, on_frames, on_x0 = collision_on
+    lane_ref = phase_lane_reference("collision_on", on_session, on_model,
+                                    on_res, on_frames, on_x0, refits)
+    phase_quality("collision_on", on_model, on_session.settings,
+                  on_session.decode_body, on_res.x, on_res.loss, lane_ref)
+    del on_res, on_session, on_model, on_frames, on_x0
     lane_ref = phase_lane_reference("collision_off", session, model, res,
-                                    frames, x0, **off)
+                                    frames, x0, refits, **off)
     phase_quality("collision_off", model, session.settings,
                   session.decode_body, res.x, res.loss, lane_ref)
 
@@ -2609,19 +3177,27 @@ def main() -> int:
 
     # ---- the first-order path: adam with the collision term (a broad
     # phase per evaluation), then short collision-off sgd and rmsprop fits
-    first_order, (session, model, res, lane_ref) = phase_first_order("adam")
+    first_order, (session, model, res, lane_ref) = phase_first_order(
+        "adam", refits)
     phase_quality("first_order", model, session.settings,
                   session.decode_body, res.x, res.loss, lane_ref)
     del session, model, res, lane_ref
     for name in ("sgd", "rmsprop"):
-        phase_first_order(name)
+        phase_first_order(name, refits)
 
     # ---- the app path: the command line, from files
-    app, (model, settings, x, losses) = phase_app()
+    app, (model, settings, x, losses) = phase_app(refits)
     phase_quality("app", model, settings, lambda b: b, x, losses)
 
     # ---- the viz path: --visualize true, overlays, live viewer
     viz = phase_viz()
+
+    # ---- the classic SMPLify-X preset (five body stages, VPoser from the
+    # zero latent, collision term in stages 3-4) on one frame and on
+    # APP_FRAMES; the Halpe preset on Halpe-26 keypoint files
+    classic = phase_preset("classic", refits)
+    halpe = phase_preset("halpe", refits)
+    refits.summary(collision_on_fit_s)
 
     lbs_rows += block_rows + family_rows
     for r in lbs_rows:
@@ -2633,7 +3209,8 @@ def main() -> int:
                 "first_order": first_order[name],
                 "parallel": parallel[name], "multihost": multihost[name],
                 "families": families[name], "video": video[name],
-                "collision_profile": collision_profile[name]}
+                "collision_profile": collision_profile[name],
+                "classic": classic[name], "halpe": halpe[name]}
 
     emit({"kernels": [
         kernel_entry("lbs", "smplifyx_torch/csrc/lbs.cu",

@@ -85,6 +85,8 @@ IMG_W = 800.0
 APP_PRESET = osp.join(osp.dirname(SLICE_PRESET),
                       "fit_smplx_combined_vposer_coco25.yaml")
 INIT_JOINTS = (9, 12, 2, 5)
+# The same four joints (hips, shoulders) in each keypoint format.
+INIT_JOINTS_BY_FORMAT = {"coco25": INIT_JOINTS, "halpe": (12, 11, 6, 5)}
 
 
 def _ground_truth(rng, B, dev):
@@ -144,10 +146,12 @@ def lane_errors_mm(fit_v, gt_v, fit_j, gt_j, parts) -> dict:
 
 def build_problem(B: int, V: int = 10475, smooth: bool = False,
                   settings: FitSettings | None = None, device="cuda",
-                  model=None):
+                  model=None, keypoint_format: str = "coco25"):
     """(model, settings, frames, x0, joint_map) for B synthetic frames of
     the coco25 format with hands, face and contour (K = 135), on `model`
-    or, without one, on the synthetic (smooth) model of V vertices."""
+    or, without one, on the synthetic (smooth) model of V vertices.
+    `keypoint_format="halpe"` projects the Halpe-26 body joints instead
+    (K = 136)."""
     dev = resolve_device(device)
     full_f32_matmuls()
     if model is None:
@@ -155,7 +159,7 @@ def build_problem(B: int, V: int = 10475, smooth: bool = False,
         model = make(num_verts=V, seed=0, device=dev)
     settings = settings or FitSettings(use_face_contour=True)
     joint_map = torch.as_tensor(
-        model_to_annotation("smplx", True, True, True, "coco25"),
+        model_to_annotation("smplx", True, True, True, keypoint_format),
         dtype=torch.int64, device=dev)
     K = joint_map.shape[0]
 
@@ -176,7 +180,8 @@ def build_problem(B: int, V: int = 10475, smooth: bool = False,
         gt_joints=gt2d, conf=conf, joint_weights=t(np.ones((B, K))),
         focal=focal, center=center,
         data_weight=t(np.full((B,), 1000.0 / IMG_H)),
-        init_joints_mask=t(np.isin(np.arange(K), INIT_JOINTS)
+        init_joints_mask=t(np.isin(np.arange(K),
+                                   INIT_JOINTS_BY_FORMAT[keypoint_format])
                            .astype(np.float32)[None].repeat(B, 0)),
         trans_estimation=t(np.zeros((B, 3))),
         depth_loss_weight=t(np.full((B,), 1e2)),
@@ -519,20 +524,21 @@ def png_bytes(width: int, height: int) -> bytes:
 
 
 def openpose_person(kp: np.ndarray, **extra) -> dict:
-    """Keypoints [K, 3] of the coco25 format with hands, face and contour
-    (25 body, 21 + 21 hand, 51 landmark, 17 contour rows) -> one person of
-    an OpenPose JSON: face rows 0:17 the contour, 17:68 the landmarks,
-    68:70 (pupils) zero."""
+    """Keypoints [K, 3] of the coco25 (or halpe) format with hands, face
+    and contour (25 (26) body, 21 + 21 hand, 51 landmark, 17 contour rows)
+    -> one person of an OpenPose JSON: face rows 0:17 the contour, 17:68
+    the landmarks, 68:70 (pupils) zero."""
     kp = np.asarray(kp, np.float32)
+    n = len(kp) - 110       # body rows
     face = np.zeros((70, 3), np.float32)
-    face[17:68], face[:17] = kp[67:118], kp[118:135]
+    face[17:68], face[:17] = kp[n + 42:n + 93], kp[n + 93:n + 110]
 
     def flat(a):
         return [float(v) for v in a.reshape(-1)]
 
-    return {"person_id": [-1], "pose_keypoints_2d": flat(kp[:25]),
-            "hand_left_keypoints_2d": flat(kp[25:46]),
-            "hand_right_keypoints_2d": flat(kp[46:67]),
+    return {"person_id": [-1], "pose_keypoints_2d": flat(kp[:n]),
+            "hand_left_keypoints_2d": flat(kp[n:n + 21]),
+            "hand_right_keypoints_2d": flat(kp[n + 21:n + 42]),
             "face_keypoints_2d": flat(face), **extra}
 
 
@@ -546,7 +552,8 @@ class AppInputs:
 
 def write_app_inputs(root: str, batch: int = SLICE_BATCH,
                      num_verts: int = SLICE_VERTS, seed: int = 0,
-                     genders=None) -> AppInputs:
+                     genders=None, keypoint_format: str = "coco25"
+                     ) -> AppInputs:
     """Write `batch` frames of the slice's problem as a user's files under
     `root`:
 
@@ -562,7 +569,9 @@ def write_app_inputs(root: str, batch: int = SLICE_BATCH,
     back from the .npz.  The regression results are the ground-truth
     poses (as rotation matrices) and cameras with noise from `seed`:
     ExPose's translation in its f=5000 convention, PIXIE's camera and box
-    consistent with FOCAL.  `genders` (one per frame) adds `gender_pd`."""
+    consistent with FOCAL.  `genders` (one per frame) adds `gender_pd`.
+    `keypoint_format="halpe"` writes Halpe-26 body keypoints (the presets
+    with `format: halpe` read them)."""
     model_dir = osp.join(root, "models", "smplx")
     for d in ("models/smplx", "data/images", "data/keypoints", "expose", "pixie"):
         os.makedirs(osp.join(root, d), exist_ok=True)
@@ -577,7 +586,8 @@ def write_app_inputs(root: str, batch: int = SLICE_BATCH,
     vposer_path = osp.join(root, "vposer.pt")
     torch.save(random_params(seed), vposer_path)
 
-    _, _, frames, _, _ = build_problem(batch, model=loaded, device="cpu")
+    _, _, frames, _, _ = build_problem(batch, model=loaded, device="cpu",
+                                       keypoint_format=keypoint_format)
     gt, cam_t = _ground_truth(np.random.default_rng(0), batch, "cpu")
     rng = np.random.default_rng(seed)
     body = gt.body_pose.numpy().reshape(batch, 21, 3)

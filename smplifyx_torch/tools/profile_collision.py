@@ -68,23 +68,32 @@ APPLY_PARTS = ("gather_f", "gather_vjp", "cone_f", "cone_vjp", "apply_f",
 STAGE = 2           # the video schedule's last stage: collision weight 1
 DEVICE_REPS = 5     # calls per device timing
 HOST_REPS = 2
+PROFILE_TRIES = 3   # profiles of one function before a lost trace fails
 TRACE_TOP = 15      # op names kept per traced region
 
 
 def device_ms(fn) -> float:
     """Device ms of one call of fn: its CUDA kernels' times under
-    torch.profiler over DEVICE_REPS calls (after one warm call), / reps."""
+    torch.profiler over DEVICE_REPS calls (after one warm call), / reps.
+    Every function timed here launches kernels, so a profile whose kernels
+    sum to no time lost its trace (on an H100, one step in two whole runs
+    of chip_smoke.py): it is taken again, at most PROFILE_TRIES times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(DEVICE_REPS):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in kernel_events(prof))
-    return us / 1e3 / DEVICE_REPS
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(DEVICE_REPS):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in kernel_events(prof))
+        if us > 0:
+            return us / 1e3 / DEVICE_REPS
+    raise RuntimeError(f"torch.profiler recorded no kernel time in "
+                       f"{PROFILE_TRIES} profiles of a function that "
+                       "launches kernels")
 
 
 def call_ms(fn) -> float:

@@ -9,9 +9,7 @@ runs them, and collision on with the folder's own model (`slice_model(96)`,
 read from its .npz by both packages)."""
 
 import dataclasses
-import json
 import os
-import shutil
 
 import numpy as np
 import jax
@@ -28,7 +26,6 @@ from smplifyx_tpu.session import build_fit_session as j_build_fit_session
 from smplifyx_tpu.utils.config import load_config as j_load_config
 from smplifyx_tpu.utils.config import parse_cli as j_parse_cli
 from smplifyx_tpu.utils.config import save_config as j_save_config
-from smplifyx_tpu.utils.io import load_result_pickle as j_load_result_pickle
 
 from smplifyx_torch import cli, convert
 from smplifyx_torch.app import regression_priors, run
@@ -36,22 +33,21 @@ from smplifyx_torch.data.keypoints import create_dataset
 from smplifyx_torch.fitting.prepare import prepare_batch
 from smplifyx_torch.models.sparse import build_joints_model
 from smplifyx_torch.ops.collision import make_collision_fn
-from smplifyx_torch.problem import (
-    SLICE_PRESET,
-    slice_model,
-    write_app_inputs,
-    write_smplx_npz,
-)
+from smplifyx_torch.problem import slice_model, write_app_inputs, write_smplx_npz
 from smplifyx_torch.session import build_fit_session
 from smplifyx_torch.utils.config import load_config, parse_cli, save_config
-from smplifyx_torch.utils.io import read_ply
 
-PRESETS = {name: os.path.join(os.path.dirname(SLICE_PRESET),
-                              f"fit_smplx_{name}.yaml")
-           for name in ("combined_coco25", "combined_vposer_coco25",
-                        "smplifyx", "combined_halpe")}
-V, FRAMES, ITERS = 96, 2, 2
-LOSS_RTOL = 0.05
+from tests._torch_parity import (
+    ITERS,
+    LOSS_RTOL,
+    PRESETS,
+    configs,
+    halpe_folder,
+    held_to_jax,
+    run_both,
+)
+
+V, FRAMES = 96, 2
 
 
 @pytest.fixture(scope="module")
@@ -71,69 +67,29 @@ def models():
     return jm, convert.smplx_model(fields, "cpu")
 
 
-def _tree(out):
-    return sorted(os.path.relpath(os.path.join(d, f), out)
-                  for d, _, files in os.walk(out) for f in files)
-
-
-def _configs(preset, out, **overrides):
-    kw = dict(maxiters=ITERS, interactive=False, **overrides)
-    return (j_load_config(PRESETS[preset], output_folder=out + "_jax", **kw),
-            load_config(PRESETS[preset], output_folder=out + "_torch", **kw))
-
-
-def _run_both(preset, out, models=None, **overrides):
-    """One config, both packages: (JAX result, port result, output dirs)."""
-    jcfg, tcfg = _configs(preset, out, **overrides)
-    jres = j_run(jcfg, model=None if models is None else models[0])
-    tres = run(tcfg, model=None if models is None else models[1], device="cpu")
-    return jres, tres, (jcfg.output_folder, tcfg.output_folder)
-
-
-def _held_to_jax(jres, tres, outs):
-    assert tres.names == jres.names
-    assert _tree(outs[1]) == _tree(outs[0])
-    assert np.isfinite(tres.losses).all()
-    rel = np.abs(tres.losses - np.asarray(jres.losses)) / np.abs(jres.losses)
-    assert (rel <= LOSS_RTOL).all(), rel
-    for tf, jf in zip(tres.result_files, jres.result_files):
-        got, want = j_load_result_pickle(tf), j_load_result_pickle(jf)
-        assert sorted(got) == sorted(want)
-        for key, value in want.items():
-            assert not isinstance(got[key], torch.Tensor), key
-            assert np.shape(got[key]) == np.shape(value), key
-        assert (got["H"], got["W"], got["focal_length"]) == \
-            (want["H"], want["W"], want["focal_length"])
-        verts, _ = read_ply(os.path.join(os.path.dirname(tf), "vertices.ply"))
-        assert np.isfinite(verts).all()
-    assert tres.stats["num_frames"] == len(tres.names)
-    assert set(tres.spans) == {"setup", "read", "prepare", "fit", "recover",
-                               "write"}
-
-
 @pytest.mark.parametrize("preset", ["combined_coco25", "combined_vposer_coco25",
                                     "smplifyx"])
 def test_app_matches_jax_collision_off(folder, models, tmp_path, preset):
-    _held_to_jax(*_run_both(preset, str(tmp_path / "out"), models,
+    held_to_jax(*run_both(preset, str(tmp_path / "out"), models,
                             **folder.overrides, interpenetration=False))
 
 
 def test_app_matches_jax_collision_on(folder, tmp_path):
     """The chip path at V=96: the VPoser combined preset, collision on, the
     model and part segmentation read from the folder by both packages."""
-    _held_to_jax(*_run_both("combined_vposer_coco25", str(tmp_path / "out"),
+    held_to_jax(*run_both("combined_vposer_coco25", str(tmp_path / "out"),
                             **folder.overrides))
 
 
 def test_resume_from_matches_jax(folder, models, tmp_path):
     """A run warm-started from a previous run's result pickles."""
     over = dict(folder.overrides, interpenetration=False)
-    first = _configs("combined_coco25", str(tmp_path / "first"), **over)[0]
+    first = configs("combined_coco25", str(tmp_path / "first"), **over)[0]
     j_run(first, model=models[0])
     results = os.path.join(first.output_folder, "results")
-    jres, tres, outs = _run_both("combined_coco25", str(tmp_path / "again"),
+    jres, tres, outs = run_both("combined_coco25", str(tmp_path / "again"),
                                  models, resume_from=results, **over)
-    _held_to_jax(jres, tres, outs)
+    held_to_jax(jres, tres, outs)
 
 
 def test_mixed_gender_groups_match_jax(models, tmp_path):
@@ -141,11 +97,11 @@ def test_mixed_gender_groups_match_jax(models, tmp_path):
     the JAX package's order."""
     inputs = write_app_inputs(str(tmp_path / "data"), batch=4, num_verts=V,
                               genders=["male", "female", "female", "male"])
-    jres, tres, outs = _run_both("combined_coco25", str(tmp_path / "out"),
+    jres, tres, outs = run_both("combined_coco25", str(tmp_path / "out"),
                                  models, **inputs.overrides,
                                  interpenetration=False)
     assert tres.names == ["frame_0001", "frame_0002", "frame_0000", "frame_0003"]
-    _held_to_jax(jres, tres, outs)
+    held_to_jax(jres, tres, outs)
 
 
 ARGV = ["--maxiters", "3", "--use_hands", "false", "--init_joints_idxs", "1",
@@ -166,28 +122,13 @@ def test_parse_cli_and_save_config_match_jax(tmp_path):
     assert dataclasses.asdict(load_config(str(jpath))) == dataclasses.asdict(got)
 
 
-def _halpe_folder(src, dst):
-    """The folder with a 26th body keypoint in every JSON (Halpe-26)."""
-    shutil.copytree(src, dst)
-    keyp = os.path.join(dst, "keypoints")
-    for name in os.listdir(keyp):
-        path = os.path.join(keyp, name)
-        with open(path) as f:
-            doc = json.load(f)
-        for person in doc["people"]:
-            person["pose_keypoints_2d"] += person["pose_keypoints_2d"][-3:]
-        with open(path, "w") as f:
-            json.dump(doc, f)
-    return dst
-
-
 @pytest.mark.parametrize("preset", list(PRESETS))
 def test_cli_runs_every_preset_on_the_cpu(folder, tmp_path, preset):
     """`python -m smplifyx_torch.cli --config <preset> ... --platform cpu`
     writes conf.yaml and, per frame, 000.pkl, 000.obj and vertices.ply."""
     data = folder.overrides["data_folder"]
     if preset == "combined_halpe":
-        data = _halpe_folder(data, str(tmp_path / "halpe"))
+        data = halpe_folder(data, str(tmp_path / "halpe"))
     out = tmp_path / "out"
     flags = [f"--{k}={v}" for k, v in folder.overrides.items()
              if k != "data_folder"]
