@@ -29,8 +29,8 @@ its loaded model and prepared keypoints held equal to the in-memory ones,
 and 4 of its frames refitted on the CPU through `app.run`.
 
 The `serve` phase runs `serve.FitService` over the collision-on session
-(`serve_http` on 127.0.0.1, `tools/load_serve.py` at 8 clients x 4
-requests and 32 x 2), checks /healthz against the requests completed, and
+(`serve_http` on 127.0.0.1, `tools/load_serve.py` at 8 clients x 2
+requests and 32 x 1), checks /healthz against the requests completed, and
 refits the first batch served under load directly: the served losses and
 parameters must be its bits.  The `first_order` phase fits the
 collision-on preset with adam at B=32 (a broad phase in every
@@ -46,20 +46,21 @@ card, repeated in each mesh's device list: the vertex-sharded forward
 (1x2 mesh, B=256: two K1 launches, each block's K1 against its plain
 version, vertices and joints within 2e-5 m of the unsharded forward);
 two spawned processes building the stale kernel libraries at once; the
-data-parallel fit of 64 frames through `fit_batch_sharded`, collision_on's
-preset in one worker (1x1) and in two (2x1) and collision_off's in two,
+data-parallel fit of 32 frames through `fit_batch_sharded`, collision_on's
+preset in one worker (1x1) and in two (2x1) and collision_off's in two
+(both at 10 L-BFGS iterations per stage, PARALLEL_OVERRIDES),
 each run bit-equal per lane to `session.fit` in this process on its
 workers' blocks of frames, with each run's start-up and fit seconds and
-frames/s, beside session.fit on all 64 frames (a lane's result depends
+frames/s, beside session.fit on all 32 frames (a lane's result depends
 on its batch's size; collision off, the median within 1%); and the
 vertex-sharded collision-off fit (1x2, 8 frames, no joints model, within
 5% per lane).  The `multihost` phases drive
 `smplifyx_torch/parallel/multihost.py` on the one card: the dry run's
 command (`python -m smplifyx_torch.parallel.multihost 2 1`, two ranks
 over gloo on 127.0.0.1, their GLOBAL_LOSS lines the same bits), then
-collision_on's preset on the same 64 frames in two ranks, fresh
+collision_on's preset on the same 32 frames in two ranks, fresh
 interpreters that each build the problem from the seed, hold its digest
-to this process's, fit their 32 rows through `fit_batch_multihost` and
+to this process's, fit their 16 rows through `fit_batch_multihost` and
 gather: the gathered loss and x the same bits in both ranks and, per
 lane, the bits of session.fit on the same two 32-frame blocks, K1, K2 and
 K3 launched in each rank, no skinning plan built; per rank the start-up,
@@ -91,6 +92,20 @@ evaluations per stage, host reads, `Timer` spans and launches.  The
 `halpe` phase runs the Halpe preset (`cfg/fit_smplx_combined_halpe.yaml`)
 the same way on 128 frames of Halpe-26 keypoint JSONs
 (`write_app_inputs(..., keypoint_format="halpe")`).
+
+The `bench` phase, last, runs the port's counterparts of the JAX
+package's four bench programs through `python -m`, each in a fresh
+interpreter that finds the kernels built (`bench_child`; BENCH_RUNS):
+`smplifyx_torch.bench --rounds 1` (B=128, V=10475, collision off),
+`smplifyx_torch.bench_collision` at its defaults (B=8, 30 iterations, a
+broad phase every 8, strong Wolfe, 20,908 random faces, whose broad
+phase saturates: the line gives each level's survivors against its
+budget), `smplifyx_torch.bench_quality 64 armijo '' <out> 90 60` held to
+the JAX quality artifact gate's thresholds, and
+`smplifyx_torch.tools.ab_flagship 128 1 wolfe=wolfe:0 armijo=armijo:90`.
+Each program's JSON lines must carry the JAX program's keys with
+`device`, `git` and the options its protocol resolves to, and each must
+launch its kernels.
 
 Every CPU refit (the lane references of collision_on and collision_off,
 the first-order lanes, the app's, classic's and halpe's first frames)
@@ -144,6 +159,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shlex
 import statistics
 import subprocess
 import sys
@@ -185,9 +201,11 @@ VIZ_FRAMES = 8      # frames of the viz path: the host rasteriser draws
 STAGE_PARAM_TOL = 1e-6
 
 # The serve phase: FitService over the collision-on session, and the load
-# points (clients, requests per client) that tools/load_serve.py drives.
+# points (clients, requests per client) that tools/load_serve.py drives:
+# (8, 4) and (32, 2) until the bench phase came, halved for its room
+# (each load point's batches are served one after the other).
 SERVE_OPTIONS = dict(max_batch=32, max_wait_s=0.25, max_queue=256)
-SERVE_LOADS = ((8, 4), (32, 2))
+SERVE_LOADS = ((8, 2), (32, 1))
 # The first-order phase: 32 frames (64 lanes with try_both_orient), cut
 # from 128 because every collision-stage evaluation runs a broad phase.
 # The learning rates were chosen on CPU fits at V=96 (optax's rules): the
@@ -214,15 +232,22 @@ FIRST_ORDER_MEDIAN_RTOL = 0.01
 # The parallel phases (parallel/mesh.py) on one card, repeated in the
 # device lists of their meshes: (a) the vertex-sharded forward at 256
 # lanes (the collision stages' batch), within the bound of JAX's
-# test_vertex_sharded_forward_matches; (b) the data-parallel fit of 64
-# frames (collision_on's preset in 1 and 2 workers, collision_off's in
-# 2), each run bit-equal to session.fit on its workers' blocks, and
-# collision off within 1% at the median of session.fit on all 64; (c)
-# the vertex-sharded collision-off fit of 8 frames, within 5% per lane.
+# test_vertex_sharded_forward_matches; (b) the data-parallel fit of
+# PARALLEL_FRAMES frames (collision_on's preset in 1 and 2 workers,
+# collision_off's in 2), each run bit-equal to session.fit on its workers'
+# blocks, and collision off within 1% at the median of session.fit on all
+# of them; (c) the vertex-sharded collision-off fit of 8 frames, within 5%
+# per lane.  PARALLEL_FRAMES was 64 until the bench phase came: 32 takes
+# the parallel and multihost fits to blocks of 16 frames.
 CARD = "cuda:0"
 SHARDED_FWD_BATCH = 256
 SHARD_TOL = 2e-5
-PARALLEL_FRAMES = 64
+PARALLEL_FRAMES = 32
+# The parallel and multihost fits' preset overrides: 10 L-BFGS iterations
+# per stage (the fast profile's maxiters x 2) in place of the main path's
+# 60, for the bench phase's room.  These fits are launch-bound, so their
+# time goes with the iterations, not the frames.
+PARALLEL_OVERRIDES = dict(maxiters=5)
 SHARDED_FIT_BATCH = 8
 PARALLEL_LANE_RTOL = 0.05
 PARALLEL_MEDIAN_RTOL = 0.01
@@ -248,6 +273,57 @@ VIDEO_CLI_TIMEOUT_S = 300
 # The collision_profile phase: tools/profile_collision.py at the doubled
 # batch of the main path's collision stages.
 PROFILE_BATCH = 256
+# The bench phase: the port's counterparts of the JAX package's bench.py,
+# bench_collision.py, bench_quality.py and tools/ab_flagship.py, each run
+# through `python -m` at full width: (module, arguments, the kinds of the
+# JSON lines it prints, in order).  bench_quality runs the committed JAX
+# artifacts' protocol (tests/test_quality_artifact.py:76) into "{out}", a
+# temporary file.
+AB_SPECS = ("wolfe=wolfe:0", "armijo=armijo:90")
+AB_CONFIGS = tuple(s.split("=")[0] for s in AB_SPECS)
+BENCH_RUNS = {
+    "bench": ("smplifyx_torch.bench", ["--rounds", "1"], ["bench"]),
+    "bench_collision": ("smplifyx_torch.bench_collision", [],
+                        ["collision_first", "collision_steady"]),
+    "bench_quality": ("smplifyx_torch.bench_quality",
+                      ["64", "armijo", "", "{out}", "90", "60"], ["quality"]),
+    "ab_flagship": ("smplifyx_torch.tools.ab_flagship",
+                    ["128", "1", *AB_SPECS],
+                    ["ab_first"] * len(AB_SPECS) + ["ab_round"]
+                    + ["ab_config"] * len(AB_SPECS)),
+}
+BENCH_TIMEOUT_S = 600
+# The JAX programs' keys, line by line (bench.py:209-214,
+# bench_collision.py:85-99, bench_quality.py:185-208,
+# tools/ab_flagship.py:101-116).
+JAX_KEYS = {
+    "bench": {"metric", "value", "unit", "vs_baseline"},
+    "collision_first": {"mode", "B", "first_run_s", "fps"},
+    "collision_steady": {"mode", "B", "steady_s", "fps", "loss_mean",
+                         "stage_evals_mean", "stage_evals_max"},
+    "quality": {"metric", "value", "unit", "ls_mode", "max_evals",
+                "max_iters", "platform", "git", "p90_mm", "max_mm", "body_mm",
+                "face_mm", "hands_mm", "pa_mpjpe14_mm", "reproj_px_mean",
+                "reproj_px_max", "stage_evals_mean", "num_frames",
+                "num_verts", "elapsed_s"},
+    "ab_first": {"config", "first_run_s"},
+    "ab_round": {"round", *AB_CONFIGS},
+    "ab_config": {"config", "B", "median_s", "fps", "loss_mean",
+                  "loss_rel_vs_first", "stage_evals_mean"},
+}
+# The JAX quality artifact gate's thresholds (tests/test_quality_artifact.py
+# :40-52, copied): mean, p90 and per-part PA-V2V and PA-MPJPE-14 in mm,
+# the mean reprojection in px.
+QUALITY_BOUNDS = {"value": 52.0, "p90_mm": 105.0, "reproj_px_mean": 3.0,
+                  "body_mm": 55.0, "face_mm": 12.0, "hands_mm": 6.0,
+                  "pa_mpjpe14_mm": 48.0}
+# The kernels each program must launch: K1 everywhere (the landmark subset
+# in the collision-off fits; the full mesh in bench_quality's recovery and
+# bench_collision's collision stages), K2 and K3 in the collision stages.
+BENCH_NEEDS = {"bench": ("lbs",), "bench_quality": ("lbs",),
+               "ab_flagship": ("lbs",),
+               "bench_collision": ("lbs", "gather", "scatter",
+                                   "scatter_join")}
 # The classic and halpe phases: the command line on APP_FRAMES frames of
 # `write_app_inputs` (Halpe-26 JSONs for halpe), collision on, with
 # APP_CPU_FRAMES of them refitted on the CPU (median within 5%); classic
@@ -2423,8 +2499,8 @@ def phase_data_parallel(label, session, model, jm, frames, x0, meshes):
     fit_batch_sharded on each of `meshes` (1x1: one worker; 2x1: two
     workers on one card repeated), held per lane against fits in this
     process: each run bit-equal to session.fit on its workers' blocks of
-    frames (one block of 64 for 1x1, two of 32 for 2x1).  Beside that,
-    each run against session.fit on all 64 frames: a lane's result
+    frames (one block for 1x1, two halves for 2x1).  Beside that,
+    each run against session.fit on all the frames: a lane's result
     depends on the size of the batch it is fitted in (the matrix products'
     kernels, and so their rounding, change with the number of lanes), and
     L-BFGS carries that rounding to other iterates; with the collision
@@ -2568,7 +2644,8 @@ def multihost_rank(argv) -> int:
     try:
         init_done = time.time()
         t0 = time.perf_counter()
-        session, model, jm, frames, x0 = build_slice(device=CARD)
+        session, model, jm, frames, x0 = build_slice(device=CARD,
+                                                     **PARALLEL_OVERRIDES)
         torch.cuda.synchronize()
         problem_s = time.perf_counter() - t0
         lo, hi = mh.process_rows(PARALLEL_FRAMES)
@@ -3044,6 +3121,164 @@ def phase_collision_profile():
     return launches
 
 
+# ---------------------------------------------------------------- bench
+
+
+def bench_child(argv) -> int:
+    """One bench program in a fresh interpreter, run as `python -m` runs
+    it (runpy, as __main__, argv after the module's name), the launch
+    counts set to 0 just before it and printed just after on a
+    BENCH_LAUNCHES line.  Returns the program's exit code."""
+    import runpy
+
+    module, *args = argv
+    sys.argv = [module, *args]
+    reset_counts()
+    code = 0
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else (e.code is not None)
+    counts = read_counts()
+    print("BENCH_LAUNCHES " + json.dumps(counts), flush=True)
+    return code
+
+
+def bench_options(name, line):
+    """The FitOptions the program's line must carry, as a dict."""
+    from smplifyx_torch import bench, bench_collision, bench_quality
+    from smplifyx_torch.tools import ab_flagship
+
+    if name == "bench":
+        opts = bench.options()
+    elif name == "bench_collision":
+        opts = bench_collision.options()
+    elif name == "bench_quality":
+        opts = bench_quality.options("armijo", 90, 60)
+    else:
+        opts = dict(map(ab_flagship.parse_spec, BENCH_RUNS[name][1][2:]))[
+            line["config"]]
+    return dataclasses.asdict(opts)
+
+
+def bench_saturation():
+    """The broad phase's survivors against its budgets at every level
+    (`tools/profile_collision.py::saturation`) for bench_collision's
+    default problem, at its frames' ground-truth poses on the card."""
+    from smplifyx_torch import bench_collision
+    from smplifyx_torch.problem import ground_truth_meshes
+    from smplifyx_torch.tools.profile_collision import saturation
+
+    cp = bench_collision.build(device=CARD)
+    B = cp.problem.x0.shape[0]
+    verts, _ = ground_truth_meshes(cp.problem.model, B)
+    return saturation(cp.collision_fn, verts)
+
+
+def phase_bench():
+    """The port's four bench programs through `python -m` on the card at
+    full width (BENCH_RUNS), each in a fresh interpreter (`bench_child`):
+    every program must exit 0, print its lines in order, each line with the
+    JAX program's keys plus `device` (nvidia-smi's name and power limit),
+    `git` and, on a line of one configuration, the options its protocol
+    resolves to; its values finite; bench_quality's record within the JAX
+    artifact gate's thresholds (QUALITY_BOUNDS) and its out_path holding
+    the printed record; each program must launch its kernels (BENCH_NEEDS),
+    and find the kernel libraries built: their files unchanged.  Prints a
+    line per program (its lines without `options`, its launches, the
+    command's seconds), bench_collision's with the broad phase's saturation
+    per level.  Returns {program: launches}."""
+    import tempfile
+
+    from smplifyx_torch.ops import nvcc
+    from smplifyx_torch.problem import SLICE_VERTS
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    card = nvidia_smi()
+    libs = {k: nvcc.library(k).stat().st_mtime_ns for k in KERNEL_SOURCES}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        quality_out = os.path.join(tmp, "quality.json")
+        for name, (module, args, _) in BENCH_RUNS.items():
+            args = [quality_out if a == "{out}" else a for a in args]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.bench_child(sys.argv[1:]))", module,
+                 *args], cwd=here, capture_output=True, text=True,
+                timeout=BENCH_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            stdout = proc.stdout.splitlines()
+            counted = [ln for ln in stdout if ln.startswith("BENCH_LAUNCHES ")]
+            if proc.returncode != 0 or len(counted) != 1:
+                raise AssertionError(
+                    f"`{shlex.join(['python', '-m', module, *args])}` exited "
+                    f"{proc.returncode}:\n{proc.stdout[-3000:]}"
+                    f"{proc.stderr[-3000:]}")
+            launches = json.loads(counted[0].split(" ", 1)[1])
+            launches["lbs_by_rows"] = {int(k): v for k, v in
+                                       launches["lbs_by_rows"].items()}
+            lines = [json.loads(ln) for ln in stdout if ln.startswith("{")]
+            row = {"phase": "bench", "program": name,
+                   "command": shlex.join(["python", "-m", module, *args]),
+                   "wall_s": wall,
+                   "lines": [{k: v for k, v in ln.items() if k != "options"}
+                             for ln in lines],
+                   "launches": launches, "lbs_full_mesh":
+                       launches["lbs_by_rows"].get(SLICE_VERTS, 0)}
+            if name == "bench_collision":
+                row["saturation"] = bench_saturation()
+            emit(row)
+            check_bench(name, lines, card, launches)
+            if name == "bench_quality":
+                with open(quality_out) as f:
+                    if json.load(f) != lines[0]:
+                        raise AssertionError("bench_quality's out_path "
+                                             "differs from its record")
+            out[name] = launches
+    if {k: nvcc.library(k).stat().st_mtime_ns for k in KERNEL_SOURCES} != libs:
+        raise AssertionError("a bench program built the kernels again")
+    return out
+
+
+def check_bench(name, lines, card, launches):
+    """A program's lines: the JAX program's lines in its order, each with
+    its keys plus `device` and `git` (and `options` on a line of one
+    configuration, equal to the protocol's), the card's name, finite
+    values; bench_quality's record within QUALITY_BOUNDS; the program's
+    kernels launched."""
+    kinds = BENCH_RUNS[name][2]
+    if len(lines) != len(kinds):
+        raise AssertionError(f"{name} printed {len(lines)} JSON lines, the "
+                             f"JAX program {len(kinds)}")
+    for ln, kind in zip(lines, kinds):
+        want = JAX_KEYS[kind] | {"device", "git"}
+        if kind != "ab_round":
+            want |= {"options"}
+            if ln.get("options") != bench_options(name, ln):
+                raise AssertionError(f"{name} ran the options "
+                                     f"{ln.get('options')}")
+        if set(ln) != want:
+            raise AssertionError(f"{name}'s {kind} line has the keys "
+                                 f"{sorted(ln)}, not {sorted(want)}")
+        if ln["device"] != card:
+            raise AssertionError(f"{name} names the device {ln['device']!r}")
+        numbers = [v for v in ln.values()
+                   if isinstance(v, (int, float)) and not isinstance(v, bool)]
+        if not np.isfinite(numbers).all():
+            raise AssertionError(f"{name} printed a value that is not "
+                                 f"finite: {ln}")
+    if name == "bench_quality":
+        over = {k: lines[0][k] for k, bound in QUALITY_BOUNDS.items()
+                if not lines[0][k] <= bound}
+        if over:
+            raise AssertionError(f"bench_quality is over the JAX artifact "
+                                 f"gate's thresholds: {over}")
+    for kernel in BENCH_NEEDS[name]:
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{name} never launched the {kernel} kernel")
+
+
 def kernel_entry(name, source, replaces, launches, rows, shape_keys, **extra):
     main = rows[0]
     entry = {
@@ -3121,42 +3356,51 @@ def run_phases(peak, refits) -> int:
     off = dict(interpenetration=False)
     session, model, jm, frames, x0 = setup("collision_off", **off)
     phase_energy(session, model, jm, frames, x0)
-    res, _, _, _ = phase_main_path("collision_off", session, model, jm,
-                                   frames, x0, needs=("lbs",))
+    off_res, _, _, _ = phase_main_path("collision_off", session, model, jm,
+                                       frames, x0, needs=("lbs",))
+    collision_off = (session, model, jm, frames, x0)
+
+    # ---- the parallel path (parallel/mesh.py) on one card: the
+    # vertex-sharded forward, kernel builds racing in two processes, the
+    # data-parallel collision-on fit in 1 and 2 workers, the vertex-sharded
+    # collision-off fit; the fits at PARALLEL_OVERRIDES' depth
+    par_forward, block_rows = phase_sharded_forward(collision_on[1], peak)
+    phase_cold_build()
+    par_on_path = setup("parallel_collision_on", **PARALLEL_OVERRIDES)
+    par_on, on_blocks = phase_data_parallel(
+        "collision_on", *par_on_path,
+        meshes=(("1x1", [CARD]), ("2x1", [CARD, CARD])))
+    par_off_path = setup("parallel_collision_off", **off,
+                         **PARALLEL_OVERRIDES)
+    par_off, _ = phase_data_parallel("collision_off", *par_off_path,
+                                     meshes=(("2x1", [CARD, CARD]),))
+    p_session, p_model, _, p_frames, p_x0 = par_off_path
+    par_sharded = phase_sharded_fit(p_session, p_model, p_frames, p_x0)
+    parallel = {k: par_forward[k] + par_on[k] + par_off[k] + par_sharded[k]
+                for k in ("lbs", "gather", "scatter")}
+    del par_off_path, p_session, p_model, p_frames, p_x0
+
+    # ---- the multihost path (parallel/multihost.py): the dry run, then
+    # the parallel collision_on path's PARALLEL_FRAMES frames in two ranks
+    # over gloo on the one card
+    multihost = phase_multihost(*par_on_path[1:], on_blocks)
+    del par_on_path, on_blocks
 
     # ---- both paths' lanes refitted on the CPU (the refit process fitted
-    # collision_on's while the card served and fitted collision_off)
+    # them while the card served, fitted collision_off and ran the parallel
+    # and multihost phases)
     on_session, on_model, _, on_frames, on_x0 = collision_on
     lane_ref = phase_lane_reference("collision_on", on_session, on_model,
                                     on_res, on_frames, on_x0, refits)
     phase_quality("collision_on", on_model, on_session.settings,
                   on_session.decode_body, on_res.x, on_res.loss, lane_ref)
-    del on_res, on_session, on_model, on_frames, on_x0
-    lane_ref = phase_lane_reference("collision_off", session, model, res,
+    del on_res, on_session, on_model, on_frames, on_x0, collision_on
+    session, model, jm, frames, x0 = collision_off
+    lane_ref = phase_lane_reference("collision_off", session, model, off_res,
                                     frames, x0, refits, **off)
     phase_quality("collision_off", model, session.settings,
-                  session.decode_body, res.x, res.loss, lane_ref)
-
-    # ---- the parallel path (parallel/mesh.py) on one card: the
-    # vertex-sharded forward, kernel builds racing in two processes, the
-    # data-parallel collision-on fit in 1 and 2 workers, the vertex-sharded
-    # collision-off fit
-    par_forward, block_rows = phase_sharded_forward(collision_on[1], peak)
-    phase_cold_build()
-    par_on, on_blocks = phase_data_parallel(
-        "collision_on", *collision_on,
-        meshes=(("1x1", [CARD]), ("2x1", [CARD, CARD])))
-    par_off, _ = phase_data_parallel("collision_off", session, model, jm,
-                                     frames, x0,
-                                     meshes=(("2x1", [CARD, CARD]),))
-    par_sharded = phase_sharded_fit(session, model, frames, x0)
-    parallel = {k: par_forward[k] + par_on[k] + par_off[k] + par_sharded[k]
-                for k in ("lbs", "gather", "scatter")}
-
-    # ---- the multihost path (parallel/multihost.py): the dry run, then
-    # collision_on's 64 frames in two ranks over gloo on the one card
-    multihost = phase_multihost(*collision_on[1:], on_blocks)
-    del collision_on, on_blocks
+                  session.decode_body, off_res.x, off_res.loss, lane_ref)
+    del off_res, collision_off, session, model, jm, frames, x0
 
     # ---- the full-scale oracle audit of the broad phase; SMPL-H and SMPL
     phase_oracle()
@@ -3199,6 +3443,10 @@ def run_phases(peak, refits) -> int:
     halpe = phase_preset("halpe", refits)
     refits.summary(collision_on_fit_s)
 
+    # ---- the bench programs: bench.py, bench_collision.py,
+    # bench_quality.py and tools/ab_flagship.py through `python -m`
+    benches = phase_bench()
+
     lbs_rows += block_rows + family_rows
     for r in lbs_rows:
         r["max_abs_err"] = r["fwd_max_abs_err"]
@@ -3210,7 +3458,8 @@ def run_phases(peak, refits) -> int:
                 "parallel": parallel[name], "multihost": multihost[name],
                 "families": families[name], "video": video[name],
                 "collision_profile": collision_profile[name],
-                "classic": classic[name], "halpe": halpe[name]}
+                "classic": classic[name], "halpe": halpe[name],
+                **{prog: counts[name] for prog, counts in benches.items()}}
 
     emit({"kernels": [
         kernel_entry("lbs", "smplifyx_torch/csrc/lbs.cu",

@@ -15,7 +15,8 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' (--platform cpu "
-            "on the command line) to run on the CPU"
+            "on the command line, --device cpu for the bench programs) to "
+            "run on the CPU"
         )
     return dev
 

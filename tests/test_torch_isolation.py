@@ -1,5 +1,7 @@
-"""The port stands alone: no JAX import anywhere in it, and no silent move
-to the CPU when no card is present."""
+"""The port stands alone: no JAX import anywhere in it (nor of the JAX
+package's root bench programs, bench.py, bench_collision.py and
+bench_quality.py), and no silent move to the CPU when no card is
+present."""
 
 import ast
 import pathlib
@@ -14,6 +16,7 @@ from smplifyx_torch.session import build_fit_session
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "smplifyx_tpu")
+ROOT_BENCHES = sorted(p.stem for p in ROOT.glob("bench*.py"))
 SOURCES = sorted((ROOT / "smplifyx_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -29,8 +32,12 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
-    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    bad = sorted(set(_imported_roots(path)) & {*FORBIDDEN, *ROOT_BENCHES})
     assert not bad, f"{path} imports {bad}"
+
+
+def test_root_benches_are_refused():
+    assert ROOT_BENCHES == ["bench", "bench_collision", "bench_quality"]
 
 
 @pytest.fixture
