@@ -10,7 +10,9 @@ results therefore equal independent single-lane runs.
 
 The loops are Python loops.  Each decides whether to go on by reading one
 boolean from the device (`any` lane still running); `LBFGSResult.host_reads`
-counts those reads.
+counts those reads.  While the span recorder records (`utils/timing.py`),
+every batched call of the objective is an `evaluation` span with the lanes
+it evaluated.
 
 Frozen parameters are a 0/1 mask on the gradient, applied with `where`
 (not a multiply: NaN * 0 is NaN), which keeps every search direction inside
@@ -23,6 +25,8 @@ from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from smplifyx_torch.utils import timing
 
 _BRACKET = 0
 _ZOOM = 1
@@ -365,14 +369,15 @@ def minimize(
         return fun(x) if aux_fn is None else fun(x, aux)
 
     def value_grad(x, aux):
-        x = x.detach().requires_grad_(True)
-        with torch.enable_grad():
-            f = call(x, aux)
-            (g,) = torch.autograd.grad(f.sum(), x)
-        return f.detach(), torch.where(free, g, 0.0)
+        with timing.span("evaluation", lanes=B, grad=True):
+            x = x.detach().requires_grad_(True)
+            with torch.enable_grad():
+                f = call(x, aux)
+                (g,) = torch.autograd.grad(f.sum(), x)
+            return f.detach(), torch.where(free, g, 0.0)
 
     def value(x, aux):
-        with torch.no_grad():
+        with timing.span("evaluation", lanes=B, grad=False), torch.no_grad():
             return call(x, aux)
 
     x = x0.detach()

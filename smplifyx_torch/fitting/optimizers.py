@@ -21,7 +21,8 @@ The update rules are optax's (the JAX package builds them with
 The batch is written out: every lane carries its own moments and count, a
 lane that is done keeps its whole state, and the loop goes on while any
 lane runs, reading one flag from the device per step
-(`LBFGSResult.host_reads`).
+(`LBFGSResult.host_reads`).  Every batched call of the objective is an
+`evaluation` span while the span recorder records (`utils/timing.py`).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from smplifyx_torch.fitting.lbfgs import (
     _where,
     minimize,
 )
+from smplifyx_torch.utils import timing
 
 
 class FirstOrder:
@@ -129,11 +131,12 @@ def minimize_first_order(
     reads = _Reads()
 
     def value_grad(x):
-        x = x.detach().requires_grad_(True)
-        with torch.enable_grad():
-            f = fun(x)
-            (g,) = torch.autograd.grad(f.sum(), x)
-        return f.detach(), torch.where(free, g, 0.0)
+        with timing.span("evaluation", lanes=B, grad=True):
+            x = x.detach().requires_grad_(True)
+            with torch.enable_grad():
+                f = fun(x)
+                (g,) = torch.autograd.grad(f.sum(), x)
+            return f.detach(), torch.where(free, g, 0.0)
 
     x = x0.detach()
     f, g = value_grad(x)

@@ -7,6 +7,11 @@ of one batch; the stages are a Python loop over the weight schedule; the
 180-degree dual-orientation retry doubles the batch to [2B] and keeps, per
 frame, the orientation with the lower final loss where the frame's 2D
 shoulder distance marks it as a possible side view.
+
+While the span recorder records (`utils/timing.py`), a fit is a `fit` span
+with its frames, and each stage's minimization a `stage` span with its
+lanes and the per-lane evaluations it needed (a device scalar, of both
+orientations: taken before the choice).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from smplifyx_torch.fitting.params import (
 from smplifyx_torch.models.bodymodel import SMPLXModel
 from smplifyx_torch.models.forward import smplx_forward
 from smplifyx_torch.ops.rotation import flip_global_orient_y
+from smplifyx_torch.utils import timing
 from smplifyx_torch.utils.device import full_f32_matmuls, resolve_device
 
 
@@ -103,6 +109,16 @@ def _first_order(optim_type: str):
     return run
 
 
+def _run_stage(run_min, stage, collision: bool, fun, x, mask, cfg, **aux):
+    """One stage's minimization, recorded as a `stage` span."""
+    with timing.span("stage", stage=stage, collision=collision,
+                     lanes=x.shape[0]) as sp:
+        res = run_min(fun, x, mask, cfg, **aux)
+        if sp is not None:
+            sp.attrs["lane_evals"] = res.n_evals.sum()
+    return res
+
+
 def fit_batch(
     model: SMPLXModel,
     settings: FitSettings,
@@ -129,6 +145,17 @@ def fit_batch(
     set and a collision_fn is given.  Every other stage runs the
     joints-only energy when a JointsModel is given.
     """
+    with timing.span("fit", fit=True, frames=x0.shape[0]):
+        return _fit_batch(
+            model, settings, options, stage_weights, frames, x0, decode_body,
+            joint_map, gmm, edge_idxs, joints_model, coll_stage_mask,
+            lhand_gmm, rhand_gmm, collision_fn, device)
+
+
+def _fit_batch(model, settings, options, stage_weights, frames, x0,
+               decode_body, joint_map, gmm, edge_idxs, joints_model,
+               coll_stage_mask, lhand_gmm, rhand_gmm, collision_fn,
+               device) -> FitResult:
     use_lbfgs = options.optim_type.lower() in ("lbfgs", "lbfgsls")
     run_min = minimize if use_lbfgs else _first_order(options.optim_type)
     dev = resolve_device(device)
@@ -167,7 +194,8 @@ def fit_batch(
 
     # ---- stage 0: camera
     if options.camera_stage:
-        cam_res = run_min(
+        cam_res = _run_stage(
+            run_min, "camera", False,
             lambda x: camera_init_energy(x, settings, model, frames,
                                          decode_body, joint_map,
                                          joints_model=joints_model),
@@ -235,8 +263,9 @@ def fit_batch(
             def aux_refresh_fn(z, aux):
                 return collision_fn.build_refresh(vertices_of(z), aux)
 
-        res = run_min(fun, x_cur, body_mask, options.lbfgs, aux_fn=aux_fn,
-                      aux_refresh_fn=aux_refresh_fn)
+        res = _run_stage(run_min, k, with_coll, fun, x_cur, body_mask,
+                         options.lbfgs, aux_fn=aux_fn,
+                         aux_refresh_fn=aux_refresh_fn)
         reads += res.host_reads
         x_cur = res.x
         losses.append(res.f)

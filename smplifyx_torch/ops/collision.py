@@ -19,7 +19,9 @@ sides) with kernel K2 and takes its gradient with kernel K3
 (ops/gather.py); `pair_gather_reference` is the same function in plain
 torch indexing.  The ids of both levels are fixed until the next broad
 phase, so the aux carries their row plans (the sort K3 reads), built once
-per broad phase.
+per broad phase.  While the span recorder records (`utils/timing.py`),
+each broad phase is a `broad_phase` span with the slots the narrow phase
+scores and the live pairs among them (a device scalar).
 
 Every step is comparisons, compactions and IEEE arithmetic, so on the same
 vertices the pair lists equal the JAX package's.  The TPU-only one-hot
@@ -43,6 +45,7 @@ from smplifyx_torch.ops.gather import (
     row_plan,
     scatter_add_rows,
 )
+from smplifyx_torch.utils import timing
 
 _BLK = 8  # triangles per block (broad-phase leaf)
 _SUP = 8  # blocks per superblock
@@ -600,10 +603,18 @@ class CollisionFn:
             "narrow_tris": (st["n_tris"], self.T),
         }
 
+    def _broad_phase(self, st: dict, steps, refresh: bool) -> CollisionAux:
+        with timing.span("broad_phase", refresh=refresh) as sp:
+            aux = self.run_steps(st, steps)["aux"]
+            if sp is not None:
+                sp.attrs.update(slots=aux.valid.numel(), live=aux.valid.sum())
+        return aux
+
     @torch.no_grad()
     def build(self, vertices) -> CollisionAux:
         """Broad phase as a reusable aux, Morton order included."""
-        return self.run_steps({"vertices": vertices}, self.BUILD_STEPS)["aux"]
+        return self._broad_phase({"vertices": vertices}, self.BUILD_STEPS,
+                                 False)
 
     @torch.no_grad()
     def build_refresh(self, vertices, aux: CollisionAux) -> CollisionAux:
@@ -612,7 +623,7 @@ class CollisionFn:
         budgets for any order; a stale order only loosens the groupings."""
         st = {"vertices": vertices, "order": aux.order,
               "sorted_pack": aux.sorted_pack}
-        return self.run_steps(st, self.REFRESH_STEPS)["aux"]
+        return self._broad_phase(st, self.REFRESH_STEPS, True)
 
     # ---- narrow phase --------------------------------------------------
 

@@ -140,6 +140,9 @@ _MUL = ("void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_"
     ("void k3_join(float const*, int const*, float*, int)", "k3_join"),
     ("lbs_kernel", "lbs_kernel"),
     ("Memcpy DtoH (Device -> Pageable)", "Memcpy DtoH (Device -> Pageable)"),
+    ("void at::cuda::(anonymous namespace)::spin_kernel(long)",
+     "at::cuda::(anonymous namespace)::spin_kernel"),
+    ("lbs_kernel(int const*, float*)", "lbs_kernel"),
 ])
 def test_kernel_names_keep_their_template_arguments(key, want):
     """The trace's kernel names drop `void` and the parameter list only:
