@@ -6,7 +6,8 @@
 Builds every hand-written kernel from the sources in the checkout (one
 nvcc per source, all started together), holds each against its plain
 PyTorch version at the shapes the main path gives it (K1 skinning, K2
-gather, K3 scatter-add) and times it, its plain version and one library
+gather, K3 scatter-add, K4 the broad phase's level-2 hit detection) and
+times it, its plain version and one library
 call on the device only (`time_ms`), holds the card's collision broad
 phase equal to the CPU's, and drives two paths through the entry points a
 user calls
@@ -319,11 +320,10 @@ QUALITY_BOUNDS = {"value": 52.0, "p90_mm": 105.0, "reproj_px_mean": 3.0,
                   "pa_mpjpe14_mm": 48.0}
 # The kernels each program must launch: K1 everywhere (the landmark subset
 # in the collision-off fits; the full mesh in bench_quality's recovery and
-# bench_collision's collision stages), K2 and K3 in the collision stages.
+# bench_collision's collision stages), K2-K4 in the collision stages.
+COLLISION_NEEDS = ("lbs", "gather", "scatter", "scatter_join", "level2")
 BENCH_NEEDS = {"bench": ("lbs",), "bench_quality": ("lbs",),
-               "ab_flagship": ("lbs",),
-               "bench_collision": ("lbs", "gather", "scatter",
-                                   "scatter_join")}
+               "ab_flagship": ("lbs",), "bench_collision": COLLISION_NEEDS}
 # The classic and halpe phases: the command line on APP_FRAMES frames of
 # `write_app_inputs` (Halpe-26 JSONs for halpe), collision on, with
 # APP_CPU_FRAMES of them refitted on the CPU (median within 5%); classic
@@ -427,6 +427,20 @@ def _spin_cycles_per_ms():
     return _spin_cycles_per_ms.value
 
 
+def call_ms(fn, reps):
+    """Median over `reps` calls of CUDA events around one call of fn, host
+    path inside."""
+    calls = []
+    for _ in range(reps):
+        start, end = _event(), _event()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        calls.append(start.elapsed_time(end))
+    return statistics.median(calls)
+
+
 def time_ms(fn, reps=25, warmup=3):
     """-> (device ms, call ms) of one call of fn (warm L2, as on the main
     path).
@@ -445,14 +459,7 @@ def time_ms(fn, reps=25, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    calls = []
-    for _ in range(reps):
-        start, end = _event(), _event()
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        calls.append(start.elapsed_time(end))
+    call = call_ms(fn, reps)
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
@@ -468,7 +475,7 @@ def time_ms(fn, reps=25, warmup=3):
         covered = not start.query()
         end.synchronize()
         if covered:
-            return start.elapsed_time(end) / reps, statistics.median(calls)
+            return start.elapsed_time(end) / reps, call
         spin_ms *= 2
     raise RuntimeError("the spin kernel never outlasted the enqueue")
 
@@ -497,7 +504,7 @@ def phase_device():
     return name
 
 
-KERNEL_SOURCES = ("lbs", "gather")
+KERNEL_SOURCES = ("lbs", "gather", "collision")
 HOST_LIBRARIES = ("keypoints_torch",)   # the native keypoint parser
 
 
@@ -516,11 +523,12 @@ def phase_build():
 
 
 def launch_counters():
+    from smplifyx_torch.ops.collision import level2_hits
     from smplifyx_torch.ops.gather import gather_rows, scatter_add_rows
     from smplifyx_torch.ops.lbs import lbs_apply
 
     return {"lbs": lbs_apply, "gather": gather_rows,
-            "scatter": scatter_add_rows}
+            "scatter": scatter_add_rows, "level2": level2_hits}
 
 
 def reset_counts():
@@ -800,6 +808,57 @@ def phase_broad(session, model, cpu_fn):
           "saturation": {k: [c.tolist(), b] for k, (c, b) in sat.items()}})
     if not all(same[k] for k in ("corner_plan", "pair_plan", "valid")):
         raise AssertionError(f"card and CPU broad phases differ: {same}")
+
+
+def check_level2(name, tab8, si_h, sj_h, mb_h, ign, rate):
+    """K4 against its plain version on the same tensors: hit_bp bit-equal
+    (`mismatched_bits` 0), K4's device time (`time_ms`), the plain
+    version's as events around a call (`call_ms`, three calls of ~0.3 s at
+    B = 256: no spin kernel covered its enqueue on the card, which waits
+    on the device), and the least time by
+    bytes: mb, si, sj and hit once and the table once.  The operations
+    give no least time: a block pair needs only its first surviving
+    triangle pair, and where that lies depends on the data."""
+    from smplifyx_torch.ops.collision import level2_hits, level2_hits_reference
+
+    B, ns, width = tab8.shape
+    Phs = si_h.shape[1]
+    got = level2_hits(tab8, si_h, sj_h, mb_h, ign)
+    want = level2_hits_reference(tab8, si_h, sj_h, mb_h, ign)
+    mismatched = int((got != want).sum())
+    times = timings(kernel=lambda: level2_hits(tab8, si_h, sj_h, mb_h, ign))
+    times["plain_ms"] = times["plain_call_ms"] = call_ms(
+        lambda: level2_hits_reference(tab8, si_h, sj_h, mb_h, ign), 3)
+    nbytes = B * Phs * (64 + 2 * 8 + 64) + 4.0 * tab8.numel()
+    row = {"phase": "level2_check", "shape": name, "B": B, "ns": ns,
+           "Phs": Phs, "Cb": width // 64, "ignored_pairs": len(ign),
+           "live_slots": int(mb_h.any(-1).sum()),
+           "block_pairs": int(mb_h.sum()), "hits": int(want.sum()),
+           "mismatched_bits": mismatched, "max_abs_err": float(mismatched),
+           **times, "library_ms": None, "bound_ms": 1e3 * nbytes / rate,
+           "bound_by": "bytes"}
+    emit(row)
+    if mismatched:
+        raise AssertionError(f"K4's hit_bp differs from the plain version's "
+                             f"in {mismatched} bits at {name}")
+    return row
+
+
+def phase_level2(session, model, peak):
+    """K4 at the main path's shape: level 1's outputs for the collision
+    stages' 256 lanes (the problem's first 256 ground-truth poses) on the
+    collision_on session's term, K4's hit_bp bit-equal to the plain
+    version's on level 1's block masks, and on the same slots with every
+    block pair of a live slot set (each one tested)."""
+    fn = session.collision_fn
+    st = fn.run_steps({"vertices": gt_vertices(model, 256)},
+                      fn.BUILD_STEPS[:fn.BUILD_STEPS.index("level2")])
+    tab8 = fn._level2_table(st)[1]
+    si_h, sj_h, mb_h = st["si_h"], st["sj_h"], st["mb_h"]
+    every = mb_h.any(-1, keepdim=True).expand_as(mb_h).contiguous()
+    return [check_level2("main_path", tab8, si_h, sj_h, mb_h, fn.ign, peak[1]),
+            check_level2("every_block_pair", tab8, si_h, sj_h, every, fn.ign,
+                         peak[1])]
 
 
 class PlainNarrow:
@@ -1555,7 +1614,7 @@ def phase_app(refits):
         raise AssertionError("two app runs of the same files differ")
     if not (np.isfinite(second).all() and found.all()):
         raise AssertionError("a loss is not finite or a result is missing")
-    for name in ("lbs", "gather", "scatter", "scatter_join"):
+    for name in COLLISION_NEEDS:
         if launches[name] <= 0:
             raise AssertionError(f"the app run never launched the {name} kernel")
     if not (lbs_split["full_mesh"] > 0 and lbs_split["subset"] > 0):
@@ -1824,7 +1883,7 @@ def phase_viz():
                              f"with {page_launches} K1 launches")
     if ver == ver_after:
         raise AssertionError("/version did not change after a rewrite")
-    for name in ("lbs", "gather", "scatter", "scatter_join"):
+    for name in COLLISION_NEEDS:
         if launches[name] <= 0:
             raise AssertionError(f"the viz run never launched the {name} kernel")
     return launches
@@ -1998,7 +2057,7 @@ def phase_preset(label, refits):
         inputs_s = time.perf_counter() - t0
         digest = inputs_digest(tmp)
         S = build_joints_model(inputs.model).sub_lbs.shape[0]
-        needs = ("lbs", "gather", "scatter", "scatter_join")
+        needs = COLLISION_NEEDS
 
         if label == "classic":
             # one frame: frame 0's image and keypoints alone in a folder
@@ -2170,9 +2229,7 @@ def phase_serve(session, model, jm, frames):
                 raise AssertionError(f"serving {clients} x {per_client}: "
                                      f"{row['errors']} errors, first "
                                      f"{row['first_errors']}")
-            _check_path_launches("serve", launches,
-                                 ("lbs", "gather", "scatter", "scatter_join"),
-                                 V, S)
+            _check_path_launches("serve", launches, COLLISION_NEEDS, V, S)
         with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
         svc._fit_group = serve_group
@@ -2364,8 +2421,7 @@ def phase_first_order(name, refits):
         raise AssertionError(f"{label}: CPU lanes {rel.tolist()} apart "
                              f"(median {median_rel:.3g})")
     _check_path_launches(label, launches,
-                         ("lbs", "gather", "scatter", "scatter_join")
-                         if collision else ("lbs",), V, S)
+                         COLLISION_NEEDS if collision else ("lbs",), V, S)
     return launches, (session, model, res, (cpu, cpu_session, cpu_model))
 
 
@@ -2415,11 +2471,12 @@ def phase_sharded_forward(model, peak):
 def _spawned_build(queue):
     """A spawned process at a worker's start: build the kernel libraries
     if stale, load them, report {source: compile seconds}."""
-    from smplifyx_torch.ops import gather, lbs, nvcc
+    from smplifyx_torch.ops import collision, gather, lbs, nvcc
 
     report = nvcc.build(*KERNEL_SOURCES)
     lbs._load()
     gather._load()
+    collision._load_k4()
     queue.put((os.getpid(), {k: s for k, (s, _) in report.items()}))
 
 
@@ -2561,8 +2618,8 @@ def phase_data_parallel(label, session, model, jm, frames, x0, meshes):
                 f"the {label} {run['mesh']} workers' fit is bit-equal to "
                 f"session.fit on the same blocks in "
                 f"{run['vs_blocks_in_process']['bit_equal_lanes']} of {B} lanes")
-        needs = (("lbs", "gather", "scatter", "scatter_join")
-                 if kwargs["collision_fn"] is not None else ("lbs",))
+        needs = (COLLISION_NEEDS if kwargs["collision_fn"] is not None
+                 else ("lbs",))
         for name in needs:
             if any(r["launches"][name] <= 0 for r in run["rows"]):
                 raise AssertionError(f"a {run['mesh']} worker never launched "
@@ -2755,7 +2812,7 @@ def phase_multihost(model, jm, frames, x0, by_blocks):
             f"the ranks' fit is bit-equal to session.fit on the same blocks "
             f"in {vs_blocks['bit_equal_lanes']} of {B} lanes")
     for r in ranks:
-        for name in ("lbs", "gather", "scatter", "scatter_join"):
+        for name in COLLISION_NEEDS:
             if r["launches"][name] <= 0:
                 raise AssertionError(f"rank {r['process']} never launched "
                                      f"the {name} kernel")
@@ -2867,7 +2924,7 @@ def phase_families(peak):
         fit_s = time.perf_counter() - t0
         launches = read_counts()
         reproj, _ = reprojection_px(session, model, frames, res.x)
-        for k in ("lbs", "gather", "scatter"):
+        for k in ("lbs", "gather", "scatter", "level2"):
             total[k] = total.get(k, 0) + launches[k]
         emit({"phase": "family_fit", "model_type": model_type,
               "J": model.num_joints, "V": model.num_verts, "B": FAMILY_BATCH,
@@ -2996,7 +3053,7 @@ def phase_video():
         raise AssertionError("a video loss or PA-V2V is not finite")
     if not bit_equal:
         raise AssertionError("two video fits of the same inputs differ")
-    for name in ("gather", "scatter", "scatter_join"):
+    for name in ("gather", "scatter", "scatter_join", "level2"):
         if launches[name] <= 0:
             raise AssertionError(f"the video fit never launched the {name} kernel")
     if not (split["full_mesh"] > 0 and split["subset"] > 0
@@ -3115,7 +3172,7 @@ def phase_collision_profile():
     if set(row["saturation"]) != {"superblock", "hit_superblock", "hit",
                                   "final", "narrow_tris"}:
         raise AssertionError(f"the profile's saturation is {row['saturation']}")
-    for name in ("lbs", "gather", "scatter", "scatter_join"):
+    for name in COLLISION_NEEDS:
         if launches[name] <= 0:
             raise AssertionError(f"the profile never launched the {name} kernel")
     return launches
@@ -3341,10 +3398,11 @@ def run_phases(peak, refits) -> int:
     gathers, scatters = phase_gather(session, model, peak)
     cpu_session, cpu_model = slice_session(device="cpu")
     phase_broad(session, model, cpu_session.collision_fn)
+    level2_rows = phase_level2(session, model, peak)
     phase_energy_collision(session, model, frames, x0)
     res, launches, plan_builds, collision_on_fit_s = phase_main_path(
         "collision_on", session, model, jm, frames, x0,
-        needs=("lbs", "gather", "scatter", "scatter_join"))
+        needs=COLLISION_NEEDS)
     phase_k3_amortised(scatters, launches["scatter"], plan_builds)
 
     # ---- the serve path: FitService over the collision-on session
@@ -3377,7 +3435,7 @@ def run_phases(peak, refits) -> int:
     p_session, p_model, _, p_frames, p_x0 = par_off_path
     par_sharded = phase_sharded_fit(p_session, p_model, p_frames, p_x0)
     parallel = {k: par_forward[k] + par_on[k] + par_off[k] + par_sharded[k]
-                for k in ("lbs", "gather", "scatter")}
+                for k in ("lbs", "gather", "scatter", "level2")}
     del par_off_path, p_session, p_model, p_frames, p_x0
 
     # ---- the multihost path (parallel/multihost.py): the dry run, then
@@ -3475,6 +3533,9 @@ def run_phases(peak, refits) -> int:
                      app["scatter"], scatters, ("B", "R", "C", "num_rows"),
                      join_launches=app["scatter_join"],
                      launches_by_path=by_path("scatter")),
+        kernel_entry("level2", "smplifyx_torch/csrc/collision.cu", None,
+                     app["level2"], level2_rows, ("B", "ns", "Phs", "Cb"),
+                     launches_by_path=by_path("level2")),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

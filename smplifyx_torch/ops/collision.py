@@ -13,15 +13,19 @@ dimension, where the JAX package runs one lane under `vmap`.
      and a differentiable cone penetration field scores each pair,
      vertex against triangle in both directions.
 
-The broad phase carries no gradient.  The narrow phase fetches the pair
-corners in two levels (vertices -> unique-triangle corner rows -> pair
-sides) with kernel K2 and takes its gradient with kernel K3
-(ops/gather.py); `pair_gather_reference` is the same function in plain
-torch indexing.  The ids of both levels are fixed until the next broad
+The broad phase carries no gradient.  Its level-2 hit detection runs on
+the card as kernel K4 (`level2_hits`, csrc/collision.cu: one warp per
+slot, no bool masks in device memory); `level2_hits_reference` is the
+same function in plain torch, which a CPU tensor takes.  The narrow phase
+fetches the pair corners in two levels (vertices -> unique-triangle
+corner rows -> pair sides) with kernel K2 and takes its gradient with
+kernel K3 (ops/gather.py); `pair_gather_reference` is the same function
+in plain torch indexing.  The ids of both levels are fixed until the next broad
 phase, so the aux carries their row plans (the sort K3 reads), built once
 per broad phase.  While the span recorder records (`utils/timing.py`),
 each broad phase is a `broad_phase` span with the slots the narrow phase
-scores and the live pairs among them (a device scalar).
+scores and the live pairs among them, and level 2's slots and the ones K4
+skips, having no block pair (device scalars).
 
 Every step is comparisons, compactions and IEEE arithmetic, so on the same
 vertices the pair lists equal the JAX package's.  The TPU-only one-hot
@@ -33,13 +37,17 @@ indexes, as the JAX package does on the CPU.
 from __future__ import annotations
 
 import copy
+import ctypes
 import pickle
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from smplifyx_torch.ops import nvcc
 from smplifyx_torch.ops.gather import (
+    _device_of,
+    _launch,
     gather_reference,
     gather_rows,
     row_plan,
@@ -50,6 +58,7 @@ from smplifyx_torch.utils import timing
 _BLK = 8  # triangles per block (broad-phase leaf)
 _SUP = 8  # blocks per superblock
 _BIG = 1e30
+_MAX_IGN = 16  # K4's ignored part pairs (csrc/collision.cu MAX_IGN)
 
 
 def load_part_segm(path: str) -> tuple[np.ndarray, np.ndarray]:
@@ -206,6 +215,110 @@ def _overlap(m, A_, B_):
     return m
 
 
+def _rel_drop(ign, sa, pa, sb, pb):
+    """The FilterFaces part test: a pair drops when its parts are equal or
+    one is the other's parent, or (sa, sb) is an ignored pair."""
+    drop = (sa == sb) | (pa == sb) | (pb == sa)
+    for p_, q_ in ign:
+        drop = drop | ((sa == p_) & (sb == q_)) | ((sa == q_) & (sb == p_))
+    return drop
+
+
+def level2_hits_reference(blk_tab8, si_h, sj_h, mb_h, ign):
+    """Plain version of K4: [B, Phs, 8j, 8ti, 8tj] slabs, one per A-side
+    block i, reduced to the block pairs that carry a surviving triangle
+    pair (`level2_hits`)."""
+    B, Phs = si_h.shape
+    Cb = blk_tab8.shape[-1] // (_SUP * _BLK)
+    dev = blk_tab8.device
+    A8 = _rows(blk_tab8, si_h).reshape(B, Phs, _SUP, Cb, _BLK)
+    B8 = _rows(blk_tab8, sj_h).reshape(B, Phs, _SUP, Cb, _BLK)
+    ti_r = torch.arange(_BLK, device=dev)
+    j_r = torch.arange(_SUP, device=dev)
+    rb = (((sj_h[..., None] * _SUP + j_r) * _BLK)[..., None, None]
+          + ti_r[None, None, :])                        # [B, Phs, 8j, 1, 8tj]
+    Bk = [B8[:, :, :, k, None, :] for k in range(Cb)]   # [B, Phs, 8j, 1, 8tj]
+    hit_cols = []
+    for i in range(_SUP):
+        Ai = A8[:, :, i]                                # [B, Phs, Cb, 8ti]
+        m = mb_h[:, :, i * _SUP:(i + 1) * _SUP, None, None]
+        ra = (((si_h * _SUP + i) * _BLK)[..., None, None, None]
+              + ti_r[:, None])                          # [B, Phs, 1, 8ti, 1]
+        m = m & (ra < rb)
+        for k in range(3):
+            m = m & (Bk[k] <= Ai[:, :, None, 3 + k, :, None]) \
+                & (Bk[3 + k] >= Ai[:, :, None, k, :, None])
+        if Cb == 8:
+            m = m & ~_rel_drop(
+                ign, Ai[:, :, None, Cb - 2, :, None],
+                Ai[:, :, None, Cb - 1, :, None], Bk[Cb - 2], Bk[Cb - 1])
+        hit_cols.append(m.any(dim=(3, 4)))             # [B, Phs, 8j]
+    return torch.cat(hit_cols, dim=-1)
+
+
+def _load_k4():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return nvcc.load("collision", {
+        "level2_hits_forward": [p] * 5 + [i] * 5 + [p, p]})
+
+
+def level2_hits(blk_tab8, si_h, sj_h, mb_h, ign=()):
+    """Level 2 of the broad phase: which block pairs of level 1's
+    survivors carry at least one triangle pair in rank order, with
+    overlapping AABBs and (with parts) passing the part test.
+
+    blk_tab8 [B, ns, 8 * Cb * 8] f32, the packed block rows of each
+    superblock (Cb = 8 with parts, 6 without), si_h, sj_h [B, Phs] int64
+    superblock pairs, mb_h [B, Phs, 64] bool their block pairs, `ign` the
+    ignored part pairs [(p, q), ...] -> hit_bp [B, Phs, 64] bool, a subset
+    of mb_h.  Comparisons only: the card's bits equal the plain version's.
+    On a CUDA tensor one launch of K4 (csrc/collision.cu; at most 16
+    ignored pairs), on a CPU tensor `level2_hits_reference`.
+    `level2_hits.launches` counts K4's launches."""
+    name = "level2_hits"
+    if blk_tab8.dtype != torch.float32 or blk_tab8.dim() != 3:
+        raise TypeError(f"{name}: the table must be [B, ns, 8 * Cb * 8] "
+                        f"float32, got {blk_tab8.dtype} {tuple(blk_tab8.shape)}")
+    B, ns, width = blk_tab8.shape
+    if width not in (8 * 8 * _BLK, 8 * 6 * _BLK):
+        raise ValueError(f"{name}: table rows of {width} floats; expected "
+                         f"{8 * 8 * _BLK} (with parts) or {8 * 6 * _BLK}")
+    for t, what in ((si_h, "si_h"), (sj_h, "sj_h")):
+        if t.dtype != torch.int64 or t.dim() != 2 or t.shape[0] != B:
+            raise ValueError(f"{name}: {what} must be [B={B}, Phs] int64, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    Phs = si_h.shape[1]
+    if tuple(sj_h.shape) != (B, Phs) or mb_h.dtype != torch.bool \
+            or tuple(mb_h.shape) != (B, Phs, 64):
+        raise ValueError(f"{name}: sj_h [B, Phs] and mb_h [B, Phs, 64] bool "
+                         f"must match si_h {tuple(si_h.shape)}, got "
+                         f"{tuple(sj_h.shape)} and {mb_h.dtype} "
+                         f"{tuple(mb_h.shape)}")
+    dev = _device_of(name, blk_tab8, si_h, sj_h, mb_h)
+    if dev.type == "cpu":
+        return level2_hits_reference(blk_tab8, si_h, sj_h, mb_h, ign)
+    if not all(t.is_contiguous() for t in (blk_tab8, si_h, sj_h, mb_h)) \
+            or blk_tab8.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel takes contiguous tensors and a "
+                         "16-byte aligned table")
+    with_parts = width == 8 * 8 * _BLK
+    if with_parts and len(ign) > _MAX_IGN:
+        raise ValueError(f"{name}: the kernel takes at most {_MAX_IGN} "
+                         f"ignored part pairs, got {len(ign)}")
+    pq = np.asarray(ign, np.float32).reshape(-1)
+    out = torch.empty(B, Phs, 64, dtype=torch.bool, device=dev)
+    _launch(name, _load_k4().level2_hits_forward,
+            blk_tab8.data_ptr(), si_h.data_ptr(), sj_h.data_ptr(),
+            mb_h.data_ptr(), out.data_ptr(), B, ns, Phs, int(with_parts),
+            len(ign) if with_parts else 0,
+            pq.ctypes.data_as(ctypes.c_void_p), dev=dev)
+    level2_hits.launches += 1
+    return out
+
+
+level2_hits.launches = 0
+
+
 class _PairGather(torch.autograd.Function):
     """Two-level narrow-phase corner fetch, forward on K2 and VJP on K3.
 
@@ -269,6 +382,12 @@ class CollisionFn:
                  sigma, penalize_outside, point2plane):
         self.ign = [tuple(int(v) for v in str(e).split(","))
                     for e in ign_part_pairs]
+        if segm is not None and len(self.ign) > _MAX_IGN:
+            # K4 packs the pairs into a 32-bit mask per triangle; the CPU
+            # refuses the same list, so both devices fit the same terms
+            raise ValueError(f"ign_part_pairs: the collision term takes at "
+                             f"most {_MAX_IGN} ignored part pairs, got "
+                             f"{len(self.ign)}")
         self.faces = torch.as_tensor(faces).to(torch.int64)
         self.device = self.faces.device
         F = self.faces.shape[0]
@@ -374,12 +493,6 @@ class CollisionFn:
         return self.run_steps({"vertices": vertices},
                               ("aabb", "morton_sort"))["order"]
 
-    def _rel_drop(self, sa, pa, sb, pb):
-        drop = (sa == sb) | (pa == sb) | (pb == sa)
-        for p_, q_ in self.ign:
-            drop = drop | ((sa == p_) & (sb == q_)) | ((sa == q_) & (sb == p_))
-        return drop
-
     def _step_level0(self, st):
         """Superblock all-pairs: -> block boxes bmin, bmax [B, nb, 3], the
         superblock-pair mask ms [B, ns, ns] and its first Ps pairs (si, sj,
@@ -415,8 +528,8 @@ class CollisionFn:
         if self.segm is not None:
             ua = _ea(A_[..., 48:56] > 0.5)
             ub = _eb(B_[..., 48:56] > 0.5)
-            m = m & ~((ua & ub) & self._rel_drop(
-                _ea(A_[..., 56:64]), _ea(A_[..., 64:72]),
+            m = m & ~((ua & ub) & _rel_drop(
+                self.ign, _ea(A_[..., 56:64]), _ea(A_[..., 64:72]),
                 _eb(B_[..., 56:64]), _eb(B_[..., 64:72])))
         return m
 
@@ -452,16 +565,12 @@ class CollisionFn:
         return {"hit_s": hit_s, "si_h": si_h, "sj_h": sj_h,
                 "mb_h": self._blk_mask(sup_tab, si_h, sj_h, validHS)}
 
-    def _step_level2(self, st):
-        """Triangle-hit detection at superblock-pair granularity: which
-        block pairs of the level-1 survivors carry >= 1 surviving triangle
-        pair ([B, Phs, 8j, 8ti, 8tj] slabs, one per A-side block) ->
-        hit_bp [B, Phs, 64], and the packed block rows blk_tab
-        [B, nb, Cb*8] the final step reads."""
+    def _level2_table(self, st):
+        """The packed block rows blk_tab [B, nb, Cb*8], which the final
+        step reads, and blk_tab8 [B, ns, 8*Cb*8], their superblock rows
+        with the padding blocks' empty rows, which level 2 reads."""
         amin_s, amax_s = st["amin_s"], st["amax_s"]
-        si_h, sj_h, mb_h = st["si_h"], st["sj_h"], st["mb_h"]
         B, nb, ns, nbp = amin_s.shape[0], self.nb, self.ns, self.nbp
-        dev = amin_s.device
         with_parts = self.segm is not None
         blk_cols = [amin_s[..., k].reshape(B, nb, _BLK) for k in range(3)] \
             + [amax_s[..., k].reshape(B, nb, _BLK) for k in range(3)]
@@ -471,36 +580,22 @@ class CollisionFn:
         blk_tab = torch.cat(blk_cols, dim=-1)               # [B, nb, Cb*8]
         Cb = blk_tab.shape[-1] // _BLK
         empty_row = [_BIG] * 3 + [-_BIG] * 3 + ([-1.0, -3.0] if with_parts else [])
-        empty = torch.tensor(empty_row, dtype=blk_tab.dtype, device=dev) \
-            .repeat_interleave(_BLK)
+        empty = torch.tensor(empty_row, dtype=blk_tab.dtype,
+                             device=amin_s.device).repeat_interleave(_BLK)
         blk_tab8 = torch.cat(
             [blk_tab, empty.expand(B, nbp - nb, Cb * _BLK)], dim=1
         ).reshape(B, ns, _SUP * Cb * _BLK)
+        return blk_tab, blk_tab8
 
-        Phs = self.Phs
-        A8 = _rows(blk_tab8, si_h).reshape(B, Phs, _SUP, Cb, _BLK)
-        B8 = _rows(blk_tab8, sj_h).reshape(B, Phs, _SUP, Cb, _BLK)
-        ti_r = torch.arange(_BLK, device=dev)
-        j_r = torch.arange(_SUP, device=dev)
-        rb = (((sj_h[..., None] * _SUP + j_r) * _BLK)[..., None, None]
-              + ti_r[None, None, :])                        # [B, Phs, 8j, 1, 8tj]
-        Bk = [B8[:, :, :, k, None, :] for k in range(Cb)]   # [B, Phs, 8j, 1, 8tj]
-        hit_cols = []
-        for i in range(_SUP):
-            Ai = A8[:, :, i]                                # [B, Phs, Cb, 8ti]
-            m = mb_h[:, :, i * _SUP:(i + 1) * _SUP, None, None]
-            ra = (((si_h * _SUP + i) * _BLK)[..., None, None, None]
-                  + ti_r[:, None])                          # [B, Phs, 1, 8ti, 1]
-            m = m & (ra < rb)
-            for k in range(3):
-                m = m & (Bk[k] <= Ai[:, :, None, 3 + k, :, None]) \
-                    & (Bk[3 + k] >= Ai[:, :, None, k, :, None])
-            if with_parts:
-                m = m & ~self._rel_drop(
-                    Ai[:, :, None, Cb - 2, :, None], Ai[:, :, None, Cb - 1, :, None],
-                    Bk[Cb - 2], Bk[Cb - 1])
-            hit_cols.append(m.any(dim=(3, 4)))             # [B, Phs, 8j]
-        return {"blk_tab": blk_tab, "hit_bp": torch.cat(hit_cols, dim=-1)}
+    def _step_level2(self, st):
+        """Triangle-hit detection at superblock-pair granularity
+        (`level2_hits`): which block pairs of the level-1 survivors carry
+        >= 1 surviving triangle pair -> hit_bp [B, Phs, 64], and the packed
+        block rows blk_tab [B, nb, Cb*8] the final step reads."""
+        blk_tab, blk_tab8 = self._level2_table(st)
+        return {"blk_tab": blk_tab,
+                "hit_bp": level2_hits(blk_tab8, st["si_h"], st["sj_h"],
+                                      st["mb_h"], self.ign)}
 
     def _tri_mask(self, blk_tab, bi_, bj_, valid_):
         """[B, N] block pairs -> [B, N, 64] surviving triangle pairs (AABB
@@ -512,8 +607,8 @@ class CollisionFn:
         A_, B_ = _rows(blk_tab, bi_), _rows(blk_tab, bj_)
         m = _overlap(m, A_, B_)
         if self.segm is not None:
-            m = m & ~self._rel_drop(
-                _ea(A_[..., 48:56]), _ea(A_[..., 56:64]),
+            m = m & ~_rel_drop(
+                self.ign, _ea(A_[..., 48:56]), _ea(A_[..., 56:64]),
                 _eb(B_[..., 48:56]), _eb(B_[..., 56:64]))
         return m
 
@@ -605,9 +700,13 @@ class CollisionFn:
 
     def _broad_phase(self, st: dict, steps, refresh: bool) -> CollisionAux:
         with timing.span("broad_phase", refresh=refresh) as sp:
-            aux = self.run_steps(st, steps)["aux"]
+            st = self.run_steps(st, steps)
+            aux = st["aux"]
             if sp is not None:
-                sp.attrs.update(slots=aux.valid.numel(), live=aux.valid.sum())
+                mb_h = st["mb_h"]
+                sp.attrs.update(slots=aux.valid.numel(), live=aux.valid.sum(),
+                                l2_slots=mb_h.shape[0] * mb_h.shape[1],
+                                l2_skipped=(~mb_h.any(dim=-1)).sum())
         return aux
 
     @torch.no_grad()
@@ -652,7 +751,7 @@ def make_collision_fn(
     faces,                                  # [F, 3] int tensor; its device is used
     segm: Optional[np.ndarray] = None,      # [F] part ids
     parents: Optional[np.ndarray] = None,   # [F] parent part ids
-    ign_part_pairs: Sequence[str] = (),     # ["9,16", ...] reference format
+    ign_part_pairs: Sequence[str] = (),     # ["9,16", ...] reference format, <= 16
     max_pairs: int = 4096,
     max_sup_pairs: int = 8192,
     max_hit_sup_pairs: int = 4096,

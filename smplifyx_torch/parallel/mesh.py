@@ -45,7 +45,7 @@ import torch
 
 from smplifyx_torch.fitting.pipeline import FitResult, fit_batch
 from smplifyx_torch.models.bodymodel import SMPLXModel
-from smplifyx_torch.ops import gather, lbs
+from smplifyx_torch.ops import collision, gather, lbs
 from smplifyx_torch.ops.gather import gather_rows, scatter_add_rows
 from smplifyx_torch.ops.lbs import LBSPlan, check_plan, lbs_apply, lbs_plan
 from smplifyx_torch.utils.device import resolve_device
@@ -258,6 +258,7 @@ def _launch_counts() -> dict:
     return {"lbs": lbs_apply.launches, "gather": gather_rows.launches,
             "scatter": scatter_add_rows.launches,
             "scatter_join": scatter_add_rows.join_launches,
+            "level2": collision.level2_hits.launches,
             "lbs_plan_builds": lbs_plan.builds}
 
 
@@ -276,6 +277,7 @@ def _worker(conn, devices: list, shard_model_axis: bool) -> None:
             torch.cuda.set_device(lead)
             gather._load()
             lbs._load()
+            collision._load_k4()
         else:
             torch.set_num_threads(1)
         kwargs = {k: to_device(pickle.loads(v), lead)

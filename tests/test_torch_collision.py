@@ -246,3 +246,49 @@ def test_candidate_pairs_equal_the_exact_oracle(ign):
     found = set(zip(np.minimum(ia, ib).tolist(), np.maximum(ia, ib).tolist()))
     oracle = set(zip(np.minimum(oi, oj).tolist(), np.maximum(oi, oj).tolist()))
     assert found == oracle
+
+
+def test_level2_hits_on_the_cpu_is_the_plain_version(mesh):
+    """A CPU tensor takes the plain version: no K4 launch, the same bits."""
+    fn = mesh["tfn"]
+    st = fn.run_steps({"vertices": mesh["tV"]},
+                      fn.BUILD_STEPS[:fn.BUILD_STEPS.index("level2")])
+    args = (fn._level2_table(st)[1], st["si_h"], st["sj_h"], st["mb_h"],
+            fn.ign)
+    before = tc.level2_hits.launches
+    got = tc.level2_hits(*args)
+    assert tc.level2_hits.launches == before
+    assert torch.equal(got, tc.level2_hits_reference(*args))
+    assert got.any()
+
+
+def test_level2_hits_refuses_what_it_does_not_take():
+    B, ns, Phs = 2, 3, 5
+    tab8 = torch.zeros(B, ns, 8 * 8 * 8)
+    ids = torch.zeros(B, Phs, dtype=torch.int64)
+    mb = torch.zeros(B, Phs, 64, dtype=torch.bool)
+    with pytest.raises(TypeError, match="float32"):
+        tc.level2_hits(tab8.double(), ids, ids, mb)
+    with pytest.raises(ValueError, match="table rows"):
+        tc.level2_hits(tab8[..., :100], ids, ids, mb)
+    with pytest.raises(ValueError, match="int64"):
+        tc.level2_hits(tab8, ids.int(), ids, mb)
+    with pytest.raises(ValueError, match="mb_h"):
+        tc.level2_hits(tab8, ids, ids, mb[..., :63])
+    with pytest.raises(ValueError, match="mb_h"):
+        tc.level2_hits(tab8, ids, ids, mb.to(torch.uint8))
+    with pytest.raises(ValueError, match="share one"):
+        tc.level2_hits(tab8, ids, ids, mb.to("meta"))
+    assert not tc.level2_hits(tab8[..., :8 * 6 * 8], ids, ids, mb).any()
+
+
+def test_more_ignored_part_pairs_than_the_kernel_takes_are_refused():
+    """The CPU refuses what K4 cannot take, so a term fits on both devices
+    or on neither; without parts the pairs are not read."""
+    faces = torch.as_tensor([[0, 1, 2], [1, 2, 3]])
+    parts = dict(segm=np.zeros(2), parents=np.zeros(2))
+    with pytest.raises(ValueError, match="at most 16 ignored part pairs"):
+        tc.make_collision_fn(faces, ign_part_pairs=["1,2"] * 17, **parts)
+    assert len(tc.make_collision_fn(faces, ign_part_pairs=["1,2"] * 16,
+                                    **parts).ign) == 16
+    assert tc.make_collision_fn(faces, ign_part_pairs=["1,2"] * 17).segm is None

@@ -268,6 +268,130 @@ def test_collision_broad_phase_equal_on_card_and_cpu(card):
     assert (vg.grad - vp.grad).abs().max().item() <= 1e-5 * scale
 
 
+# K4 (ops/collision.py::level2_hits): the cell's six ignored part pairs;
+# meshes: the benchmark's generated full-width surface (F = 20,908, its
+# tubes' parts; nb 2614 blocks in 327 superblocks, so the last one is
+# padded) and a small random one (F = 600: 75 blocks, 10 superblocks).
+IGN6 = ["9,16", "9,17", "6,16", "6,17", "1,2", "12,22"]
+
+
+@pytest.fixture(scope="module")
+def full_surface():
+    import numpy as np
+
+    from perfbench.generate import ref, surface
+
+    s = surface(10475, 20908)
+    parents = np.maximum(np.asarray(ref.SMPLX_PARENTS), 0)[s["part"]]
+    return s["verts"], s["faces"], s["part"], parents
+
+
+def _level2_case(mesh, surface, B, parts, dev):
+    """(collision fn, vertices [B, V, 3]) on `dev`: lanes cycle through the
+    rest pose, vertex noise of 3 mm and 1 cm, the body squashed to 30% in
+    x (arms into the torso: contacts across parts) and that with 5 mm of
+    noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(B + 2 * parts)
+    if mesh == "full":
+        verts, faces, segm, parents = surface
+        kw = {}
+    else:
+        V, F = 400, 600
+        verts = rng.random((V, 3)).astype(np.float32) * 0.3
+        base = rng.integers(0, V - 3, (F, 1))
+        faces = np.concatenate([base, base + 1, base + 2], 1)
+        ids = np.asarray([1, 2, 6, 9, 12, 16, 17, 22])
+        segm, parents = ids[rng.integers(0, 8, F)], ids[rng.integers(0, 8, F)]
+        kw = dict(max_pairs=512, max_tris=256)
+    lanes = []
+    for b in range(B):
+        v = np.array(verts, np.float32)
+        kind = b % 5
+        if kind >= 3:
+            v[:, 0] *= 0.3
+        noise = (0.0, 0.003, 0.01, 0.0, 0.005)[kind]
+        lanes.append(v + noise * rng.standard_normal(v.shape).astype(np.float32))
+    if parts:
+        kw.update(segm=segm, parents=parents, ign_part_pairs=IGN6)
+    fn = tc.make_collision_fn(torch.as_tensor(np.asarray(faces, np.int64),
+                                              device=dev), **kw)
+    return fn, torch.as_tensor(np.stack(lanes), device=dev)
+
+
+def _level2_inputs(fn, verts):
+    """The arguments `_step_level2` hands to level2_hits."""
+    st = fn.run_steps({"vertices": verts},
+                      fn.BUILD_STEPS[:fn.BUILD_STEPS.index("level2")])
+    return fn._level2_table(st)[1], st["si_h"], st["sj_h"], st["mb_h"], fn.ign
+
+
+@pytest.mark.parametrize("parts", [True, False], ids=["parts", "no_parts"])
+@pytest.mark.parametrize("B", [1, 7, 256])
+@pytest.mark.parametrize("mesh", ["full", "small"])
+def test_level2_kernel_is_bit_equal_to_plain_version(card, full_surface, mesh,
+                                                     B, parts):
+    """K4's hit_bp equals the plain version's on level 1's real outputs,
+    and on the same slots with every third row's mask emptied and half the
+    other bits dropped (rows the kernel skips, sparse rows)."""
+    fn, verts = _level2_case(mesh, full_surface, B, parts, card)
+    assert fn.nbp > fn.nb
+    tab8, si_h, sj_h, mb_h, ign = _level2_inputs(fn, verts)
+    gen = torch.Generator(device=card).manual_seed(B)
+    thinned = mb_h & (torch.rand(mb_h.shape, device=card, generator=gen) < 0.5)
+    thinned[:, ::3] = False
+    for mb in (mb_h, thinned):
+        before = tc.level2_hits.launches
+        got = tc.level2_hits(tab8, si_h, sj_h, mb, ign)
+        want = tc.level2_hits_reference(tab8, si_h, sj_h, mb, ign)
+        torch.cuda.synchronize()
+        assert tc.level2_hits.launches == before + 1
+        assert got.dtype == torch.bool and got.shape == want.shape
+        assert torch.equal(got, want)
+    print("level2", mesh, B, parts, "live slots",
+          int(mb_h.any(-1).sum()), "of", mb_h.shape[0] * mb_h.shape[1],
+          "block pairs", int(mb_h.sum()), "hits", int(want.sum()))
+
+
+@pytest.mark.parametrize("B", [7, 256])
+def test_level2_kernel_keeps_the_aux_and_counts_equal(card, full_surface, B,
+                                                      monkeypatch):
+    """build, build_refresh and saturation through K4 against the same
+    calls with the plain level 2 on the card: every CollisionAux field and
+    every count equal; one K4 launch per broad phase."""
+    fn, verts = _level2_case("full", full_surface, B, True, card)
+    before = tc.level2_hits.launches
+    aux = fn.build(verts)
+    moved = verts + 0.002
+    refresh = fn.build_refresh(moved, aux)
+    sat = fn.saturation(verts)
+    torch.cuda.synchronize()
+    assert tc.level2_hits.launches == before + 3
+    monkeypatch.setattr(tc, "level2_hits", tc.level2_hits_reference)
+    want_aux = fn.build(verts)
+    want_refresh = fn.build_refresh(moved, want_aux)
+    want_sat = fn.saturation(verts)
+    for got, want in ((aux, want_aux), (refresh, want_refresh)):
+        for name in tc.CollisionAux._fields:
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+    for level, (count, budget) in want_sat.items():
+        assert torch.equal(sat[level][0], count) and sat[level][1] == budget
+    assert int(sat["hit"][0].sum()) > 0
+
+
+def test_level2_kernel_refuses_what_it_does_not_take(card):
+    fn, verts = _level2_case("small", None, 2, True, card)
+    tab8, si_h, sj_h, mb_h, ign = _level2_inputs(fn, verts)
+    with pytest.raises(ValueError, match="share one"):
+        tc.level2_hits(tab8, si_h.cpu(), sj_h, mb_h, ign)
+    with pytest.raises(ValueError, match="contiguous"):
+        tc.level2_hits(tab8, si_h, sj_h, mb_h.transpose(0, 1).contiguous()
+                       .transpose(0, 1), ign)
+    with pytest.raises(ValueError, match="at most 16"):
+        tc.level2_hits(tab8, si_h, sj_h, mb_h, [(1, 2)] * 17)
+
+
 def test_vposer_decode_on_card_matches_cpu(card):
     """VPoser's decode and its gradient in z on the card (cuBLAS, TF32 off
     as in the fit) against the same network on the CPU, at random z and at

@@ -157,6 +157,30 @@ def test_broad_phase_spans_hold_their_live_pairs(fits):
     assert [s.attrs["refresh"] for s in phases].count(False) == 2
 
 
+def test_broad_phase_spans_count_level2_slots_and_skipped_ones(rec):
+    """`l2_slots` is B x Phs and `l2_skipped` the slots whose block-pair
+    mask level 1 left empty, in build and in build_refresh."""
+    from smplifyx_torch.ops import collision as tc
+
+    gen = torch.Generator().manual_seed(0)
+    nv, nf = 400, 600
+    verts = torch.rand(2, nv, 3, generator=gen)
+    base = torch.randint(0, nv - 3, (nf, 1), generator=gen)
+    fn = tc.make_collision_fn(torch.cat([base, base + 1, base + 2], dim=1),
+                              max_pairs=512, max_tris=256)
+    mb_h = fn.run_steps({"vertices": verts},
+                        fn.BUILD_STEPS[:fn.BUILD_STEPS.index("level2")])["mb_h"]
+    empty = int((~mb_h.any(-1)).sum())
+    with profiled():
+        fn.build_refresh(verts, fn.build(verts))
+    phases = [s for s in rec.spans if s.name == "broad_phase"]
+    assert [s.attrs["refresh"] for s in phases] == [False, True]
+    for s in phases:
+        assert s.attrs["l2_slots"] == 2 * fn.Phs == 200
+        assert int(s.attrs["l2_skipped"]) == empty
+    assert 0 < empty < 200
+
+
 def test_first_order_and_lbfgs_evaluations_are_spans(rec):
     """Outside a fit: every batched call of the objective is a span."""
     target = torch.tensor([[1.0, -2.0], [0.5, 3.0], [2.0, 2.0]])
