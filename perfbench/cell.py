@@ -2,8 +2,9 @@
 window's outputs against the plain reference, and the metrics.
 
 Set-up (timed as `setup_s`, from the start of the process to the first
-timed fit) draws the cell's body model, frames and the regressors'
-estimates from the seed (generate.py), writes the model as a user's files, loads it and builds the
+timed fit) draws the cell's body model (and VPoser, where the preset uses
+one), frames and the regressors' estimates from the seed (generate.py),
+writes the model as a user's files, loads it and builds the
 fit session through the program's entry points, and warms up with one
 short fit of the cell's own batch that runs every stage's code path.
 
@@ -13,7 +14,8 @@ batch from the frame records (`fitting/prepare.py::prepare_batch`), fit it
 recover_outputs`) and wait for the card.  Each repetition takes the next
 frames of the pool drawn in set-up.  The fit that crosses the end of the
 window is finished and counted, and the window ends with it.  A traced
-run (`trace=True`) times one repetition under torch.profiler instead.
+run (`trace=True`) times one repetition under torch.profiler instead (and
+the next, where the first one's trace lacks a mark).
 """
 
 from __future__ import annotations
@@ -36,6 +38,10 @@ from perfbench import reference as ref
 from perfbench import trace as tr
 from perfbench.counts import peak
 
+# Fits traced at most in one run: a second where the first one's trace
+# lacks a mark (trace.IncompleteTrace).
+TRACE_ATTEMPTS = 2
+
 
 def _sync(dev):
     if dev.type == "cuda":
@@ -49,12 +55,14 @@ def _merge(base: dict, extra: dict | None) -> dict:
     return out
 
 
-def model_shapes(body: ref.Body, preset: dict) -> dict:
+def model_shapes(body: ref.Body, preset: dict,
+                 vposer: ref.VPoser | None = None) -> dict:
     """The shapes the operation counts read, worked out from the model
     file: vertex, joint, corrective and coefficient counts, the nonzeros
     of the skinning weights and the joint regressor, and the vertices the
     keypoints read (vertex joints and landmark triangles) with their
-    skinning nonzeros."""
+    skinning nonzeros; and from the VPoser checkpoint, if the preset uses
+    one, the decoder's latent, hidden and joint counts (else None)."""
     faces = body.faces
     subset = torch.unique(torch.cat([
         body.extra_vids.reshape(-1), faces[body.lmk_faces].reshape(-1),
@@ -73,6 +81,9 @@ def model_shapes(body: ref.Body, preset: dict) -> dict:
         coll_stages=[float(w) > 0 for w in preset["coll_loss_weights"]]
         if preset["interpenetration"] else
         [False] * len(preset["coll_loss_weights"]),
+        vposer=None if vposer is None else dict(
+            latent=vposer.latent_dim, hidden=vposer.hidden,
+            joints=vposer.num_joints),
     )
 
 
@@ -93,6 +104,8 @@ class Program:
         if unknown:
             raise KeyError(f"the program's Config has no {sorted(unknown)}")
         preset["part_segm_fn"] = paths["part_segm"]
+        if preset["use_vposer"]:
+            preset["vposer_ckpt"] = paths["vposer"]
         self.cfg = Config(**preset).validate()
         self.device = torch.device(device)
         self.model = load_body_model(
@@ -126,7 +139,7 @@ class Program:
         with self.span("prepare"):
             prep = self._prep.prepare_batch(
                 self.cfg, records, self.joint_weights, regression=regression,
-                device=self.device)
+                vposer=self.session.vposer, device=self.device)
         with self.span("fit"):
             res = session.fit(self.model, self.joints_model, prep.frames,
                               prep.x0)
@@ -198,18 +211,24 @@ def _run(manifest, cell, conf, traffic, seed, seconds, trace, dev, tmp, t0,
     tensors = generate.body_model(model_cfg, seed, dev)
     paths = generate.write_model(tensors, tmp)
     del tensors
+    truth_vposer = None
+    if preset["use_vposer"]:
+        paths["vposer"] = generate.write_vposer(
+            generate.vposer_params(conf["vposer"], preset["vposer_latent_dim"],
+                                   seed, dev), tmp)
+        truth_vposer = ref.VPoser(paths["vposer"], torch.float64, dev)
     truth_body = ref.Body(paths["model"], {**model_cfg, "num_pca_comps":
                                            preset["num_pca_comps"]},
                           torch.float64, dev)
-    shapes = model_shapes(truth_body, preset)
+    shapes = model_shapes(truth_body, preset, truth_vposer)
     gt = generate.ground_truth(traffic, pool * B, focal, seed, dev,
                                preset["num_pca_comps"], preset["num_betas"],
-                               preset["num_expression_coeffs"])
+                               preset["num_expression_coeffs"], truth_vposer)
     kp = generate.keypoints(truth_body, gt, traffic, focal, (H, W), seed, dev)
     # The regressors' estimates as both sides read them: float32.
     reg = {k: v.float().cpu().numpy() for k, v in
            generate.regression(gt, traffic, seed, dev).items()}
-    del truth_body
+    del truth_body, truth_vposer
     program = Program(conf, paths, dev)
 
     def records(i):
@@ -238,33 +257,46 @@ def _run(manifest, cell, conf, traffic, seed, seconds, trace, dev, tmp, t0,
 
     with fault:
         start = time.perf_counter()
-        traced_i = None
+        traced_i, profiled = None, []
         if trace and dev.type == "cuda":
             # Untraced fits for the first half of the window, whose times
             # the metrics read (once CUPTI has started, every later fit is
-            # slower too); then one fit under the profiler.
+            # slower too); then one fit under the profiler, and the next
+            # one if its trace comes back without every mark.
             i = 0
             while i == 0 or time.perf_counter() - start < seconds / 2:
                 call(i)
                 i += 1
-            recorder.prime(program.model.lbs_weights,
-                           program.joints_model.sub_lbs)
-            program.recorder = recorder
-            with recorder.installed(program.session), torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                # CUPTI can miss what is launched as it starts: let it
-                # settle on a throwaway kernel before the first mark.
-                torch.ones(1, device=dev).add_(1)
-                _sync(dev)
-                t_traced = time.perf_counter()
-                call(i)
-                window_s = time.perf_counter() - t_traced
-            traced_i, i = i, i + 1
-            program.recorder = None
-            t_read = time.perf_counter()
-            summary = tr.read(prof, recorder.marks)
-            del prof
-            read_s = time.perf_counter() - t_read
+            while summary is None:
+                recorder = tr.Recorder()
+                recorder.prime(program.model.lbs_weights,
+                               program.joints_model.sub_lbs)
+                program.recorder = recorder
+                with recorder.installed(program.session), \
+                        torch.profiler.profile(activities=[
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    # The profiler's edges are uncertain (trace.SETTLE_S):
+                    # a throwaway kernel, then the call well inside them.
+                    torch.ones(1, device=dev).add_(1)
+                    _sync(dev)
+                    time.sleep(tr.SETTLE_S)
+                    t_traced = time.perf_counter()
+                    call(i)
+                    window_s = time.perf_counter() - t_traced
+                    time.sleep(tr.SETTLE_S)
+                profiled.append(i)
+                traced_i, i = i, i + 1
+                program.recorder = None
+                t_read = time.perf_counter()
+                try:
+                    summary = tr.read(prof, recorder.marks)
+                except tr.IncompleteTrace as e:
+                    if len(profiled) == TRACE_ATTEMPTS:
+                        raise
+                    print(f"perfbench: the trace of fit {traced_i}: {e}; "
+                          "tracing the next fit", file=sys.stderr)
+                del prof
+                read_s += time.perf_counter() - t_read
         else:
             i = 0
             while True:
@@ -290,7 +322,7 @@ def _run(manifest, cell, conf, traffic, seed, seconds, trace, dev, tmp, t0,
     # A traced run's per-layer metrics read the traced fit, and the
     # untraced fits before it for their times.
     traced = [f for f in fits if f[0] == traced_i]
-    untraced = [f for f in fits if f[0] != traced_i]
+    untraced = [f for f in fits if f[0] not in profiled]
 
     def counters(of):
         return [dict(host_reads=res.host_reads,
@@ -307,8 +339,7 @@ def _run(manifest, cell, conf, traffic, seed, seconds, trace, dev, tmp, t0,
         return torch.stack([get(k, j) for k, j in (done[p] for p in pick)]
                            ).detach().cpu() if pick else None
 
-    answers = {"energy": take(lambda k, j: energies[k][0][j]),
-               "grad": take(lambda k, j: energies[k][1][j]),
+    answers = {"grad": take(lambda k, j: energies[k][1][j]),
                "vertices": take(lambda k, j: fits[k][3].vertices[j]),
                "joints": take(lambda k, j: fits[k][3].joints[j])}
     rows = [(fits[done[p][0]][0] % pool) * B + done[p][1] for p in pick]
@@ -324,7 +355,10 @@ def _run(manifest, cell, conf, traffic, seed, seconds, trace, dev, tmp, t0,
 
     t_check = time.perf_counter()
     reference = check.Reference(conf, paths, (H, W), dev)
-    if pick:
+    # A sample with a non-finite answer reads as infinitely far, and is
+    # not handed to the reference (an SVD of NaN raises).
+    if pick and all(bool(torch.isfinite(v).all())
+                    for v in (sample["x"], *answers.values())):
         values = check.readings(reference, sample, answers)
         pa = ref.pa_v2v_mm(answers["vertices"].to(dev, torch.float64),
                            reference.gt_vertices(gt_sample)).cpu().numpy()
@@ -377,6 +411,7 @@ def _run(manifest, cell, conf, traffic, seed, seconds, trace, dev, tmp, t0,
             "host_reads": [c["host_reads"] for c in run_counters["traced"]
                            + run_counters["untraced"]],
             "over_budget": values.get("over_budget"),
+            "run_off": values.get("run_off"),
             "trace_read_s": read_s, "check_s": check_s}
     if summary is not None:
         kernels = [tr.kernel_base(k[0]) for k in summary["kernels"]]

@@ -3,12 +3,14 @@ frames it fitted in the window, judged by the plain reference
 (reference.py) once the window has closed.
 
 For each sampled frame the program answered with its fitted parameters x
-and the mesh and keypoints it recovered from x; and, asked once the window
-has closed (still under whatever runs the window), with the energy of the
-last stage and its gradient at x from its own energy function on the
-fit's whole batch, with a broad phase at x: the data term through the
-camera, the priors, and the self-collision term through the broad phase
-and kernels K2/K3.  The numbers compared:
+(under VPoser the body segment is the latent, which the reference decodes
+with its own VPoser from the same checkpoint) and the mesh and keypoints
+it recovered from x; and, asked once the window has closed (still under
+whatever runs the window), with the gradient at x of the last stage's
+energy from its own energy function on the fit's whole batch, with a
+broad phase at x: the data term through the camera, the priors, and the
+self-collision term through the broad phase and kernels K2/K3.  The
+numbers compared:
 
   mesh_gap_mm    the largest gap over the sample of the recovered vertices
                  from the reference's forward at x (shape, expression and
@@ -16,22 +18,37 @@ and kernels K2/K3.  The numbers compared:
                  skinning: kernel K1);
   joints_gap_mm  the same of the recovered keypoints (skeleton, vertex
                  joints, face and contour landmarks, joint map);
-  energy_gap     the largest gap over the sample of the program's energy
-                 from the reference's exact energy at x, relative to it;
   grad_gap       the largest over the sample of the distance of the
                  program's gradient from the reference's, relative to the
-                 length of the reference's;
-                 both over the frames whose exact collision pairs are
-                 within the configuration's `max_coll_pairs`: past it the
-                 configuration has the program score that many of them;
+                 length of the reference's; over the frames whose exact
+                 collision pairs are within the configuration's
+                 `max_coll_pairs` (past it the configuration has the
+                 program score that many of them), and that have not
+                 run off (below): a fit that ran off into deep
+                 self-penetration holds pairs whose boxes barely touch and
+                 whose cones carry 1e4-1e5 each, so that float32's
+                 rounding alone moves its gradient by over 1e-2, and the
+                 program's budgets below `max_coll_pairs` bind only in
+                 such frames;
   reproj_px      per frame the mean distance of the reference's projected
                  keypoints at x from the frame's keypoints, over the
                  keypoints the last stage weighs, and of those the upper
-                 quartile over the sample: the fit's outcome against its
-                 input.
+                 quartile over the sampled frames that did not run off:
+                 the fit's outcome against its input.
+
+A frame has run off where its exact energy without the self-collision
+term (the data term and the priors: how well it fits its keypoints and
+stays plausible) exceeds `RUN_OFF` times the sample's median of the same
+(interpolated, so that no frame of two can).  Some 7-10% of fitted frames
+do, on every seed; a sample of 32 that holds eight of them would put the
+upper quartile among them.  The collision term is left out of the rule
+so that a broken collision term, which lets fits walk into each other,
+does not take its own frames out of the gradient.  Every frame stays in
+the mesh and keypoint gaps.
 
 Read beside them and not compared: `over_budget`, the sampled frames past
-`max_coll_pairs`.
+`max_coll_pairs`, and `run_off`, the sampled frames that ran off.  The energy itself is not compared: at the frames left it
+separates the control from sound runs by less than three times.
 
 The reference runs in float64.  The control puts the reference, in float32
 with TF32 products, in the program's place (`outputs`), and is read by
@@ -47,10 +64,12 @@ import torch
 
 from perfbench import reference as ref
 
-NAMES = ("mesh_gap_mm", "joints_gap_mm", "energy_gap", "grad_gap",
-         "reproj_px")
+NAMES = ("mesh_gap_mm", "joints_gap_mm", "grad_gap", "reproj_px")
 BLOCK = 8       # frames the reference holds at once
 QUANTILE = 0.75
+# A frame whose exact energy without the collision term exceeds this many
+# times the sample's median of the same has run off.
+RUN_OFF = 100.0
 
 
 class Reference:
@@ -66,6 +85,9 @@ class Reference:
         model_cfg = {**conf["model"],
                      "num_pca_comps": self.preset["num_pca_comps"]}
         self.body = ref.Body(paths["model"], model_cfg, dtype, device, tf32)
+        self.vposer = None
+        if self.preset["use_vposer"]:
+            self.vposer = ref.VPoser(paths["vposer"], dtype, device, tf32)
         self.collision = (ref.Collision(self.body.faces, paths["part_segm"],
                                         self.preset)
                           if self.preset["interpenetration"] else None)
@@ -84,11 +106,13 @@ class Reference:
                 e = ref.energy(self.body, self.preset, xb,
                                kp[lo:lo + BLOCK].to(self.device), self.focal,
                                self.image_hw, self.collision,
-                               reg_body=reg[lo:lo + BLOCK])
+                               reg_body=reg[lo:lo + BLOCK],
+                               vposer=self.vposer)
                 g = (torch.autograd.grad(e["total"].sum(), xb)[0] if grad
                      else None)
             o = {k: e[k].detach() for k in ("total", "vertices", "joints",
                                             "proj", "weights", "pairs")}
+            o["fit_energy"] = (e["total"] - e["terms"]["collision"]).detach()
             if grad:
                 o["grad"] = g
             outs.append(o)
@@ -99,8 +123,8 @@ class Reference:
         """What the program answers at x, computed by this reference: the
         control's outputs when the reference is the control."""
         e = self.evaluate(x, kp, reg, grad=True)
-        return {"energy": e["total"], "grad": e["grad"],
-                "vertices": e["vertices"], "joints": e["joints"]}
+        return {"grad": e["grad"], "vertices": e["vertices"],
+                "joints": e["joints"]}
 
     def gt_vertices(self, gt: dict) -> torch.Tensor:
         outs = []
@@ -114,8 +138,8 @@ class Reference:
 
 def readings(reference: Reference, sample: dict, answers: dict) -> dict:
     """The numbers compared for one sample {x, keypoints, reg} and the
-    answers {energy, grad, vertices, joints} given for it, and
-    `over_budget`."""
+    answers {grad, vertices, joints} given for it, and `over_budget` and
+    `run_off`."""
     e = reference.evaluate(sample["x"], sample["keypoints"], sample["reg"],
                            grad=True)
     dev, dt = e["vertices"].device, e["vertices"].dtype
@@ -130,19 +154,20 @@ def readings(reference: Reference, sample: dict, answers: dict) -> dict:
     g = answers["grad"].to(dev, dt)
     # The configuration states that the program scores at most
     # `max_coll_pairs` pairs a frame: frames with more exact pairs than
-    # that are left out of the energy and gradient.
+    # that are left out of the gradient.  Frames that ran off are left out
+    # of the gradient and the reprojection.
     within = (e["pairs"] <= reference.preset["max_coll_pairs"]).to(dev)
-    energy_gap = ((answers["energy"].to(dev, dt) - e["total"]).abs()
-                  / e["total"].abs().clamp_min(1e-30))
+    fit = e["fit_energy"]
+    settled = fit <= RUN_OFF * torch.quantile(fit, 0.5)
     grad_gap = ((g - e["grad"]).norm(dim=-1)
                 / e["grad"].norm(dim=-1).clamp_min(1e-30))
     out = {
         "mesh_gap_mm": 1000.0 * gap("vertices"),
         "joints_gap_mm": 1000.0 * gap("joints"),
-        "energy_gap": torch.where(within, energy_gap, 0).amax().item(),
-        "grad_gap": torch.where(within, grad_gap, 0).amax().item(),
-        "reproj_px": torch.quantile(per_frame, QUANTILE).item(),
+        "grad_gap": torch.where(within & settled, grad_gap, 0).amax().item(),
+        "reproj_px": torch.quantile(per_frame[settled], QUANTILE).item(),
         "over_budget": int((~within).sum()),
+        "run_off": int((~settled).sum()),
     }
     # A non-finite answer reads as infinitely far.
     return {k: (v if math.isfinite(v) else math.inf) for k, v in out.items()}

@@ -11,10 +11,11 @@ run length, so that a run's sample is compared); its numbers
 (check.py) are the program's readings, and the reference computed in
 float32 with TF32 products and put in the program's place gives the
 control's readings on the same sample.  For the first `--fault-seeds`
-seeds, every fault of faults.py once.  Prints one JSON line per run, then
-a summary: per number (and `over_budget`, read beside them) the largest
-sound reading, the smallest control reading and the smallest reading of
-each fault.  Needs a CUDA card: TF32 exists only there.  The benchmark's own runs do not run this.
+seeds, every fault of faults.py that applies to the configuration once.
+Prints one JSON line per run, then a summary: per number (and
+`over_budget` and `run_off`, read beside them) the largest sound reading,
+the smallest control reading and the smallest reading of each fault.
+Needs a CUDA card: TF32 exists only there.  The benchmark's own runs do not run this.
 """
 
 from __future__ import annotations
@@ -35,12 +36,16 @@ def readings(workload: str, seeds: list, fault_seeds: int, seconds=0.0,
     """Run the program, the control and the faults on `seeds`; returns the
     summary {number: {sound, control, <fault>: reading}}."""
     from perfbench import check
-    from perfbench.cell import run_cell
-    from perfbench.faults import FAULTS
+    from perfbench.cell import _merge, run_cell
+    from perfbench.faults import FAULTS, VPOSER_ONLY
     from perfbench.manifest import Manifest
 
     manifest = Manifest()
     cell = manifest.workload(workload)
+    preset = _merge(manifest.config(cell["config"]),
+                    (overrides or {}).get("config"))["preset"]
+    faults = {k: f for k, f in FAULTS.items()
+              if preset["use_vposer"] or k not in VPOSER_ONLY}
     runs = []
     for k, seed in enumerate(seeds):
         # Only the first run warms up: the readings need no steady timing.
@@ -55,7 +60,7 @@ def readings(workload: str, seeds: list, fault_seeds: int, seconds=0.0,
         emit(json.dumps({"seed": seed, "sound": sound,
                          "control": out["control"], "info": out["info"]}))
         if k < fault_seeds:
-            for name, fault in FAULTS.items():
+            for name, fault in faults.items():
                 out = run_cell(manifest, cell, seed, seconds, False,
                                device=device, overrides=ov, fault=fault())
                 got = out["values"]
@@ -63,10 +68,10 @@ def readings(workload: str, seeds: list, fault_seeds: int, seconds=0.0,
                 emit(json.dumps({"seed": seed, "fault": name,
                                  "readings": got}))
     summary = {}
-    for n in (*check.NAMES, "over_budget"):
+    for n in (*check.NAMES, "over_budget", "run_off"):
         row = {"sound": max(r[n] for kind, _, r in runs if kind == "sound"),
                "control": min(r[n] for kind, _, r in runs if kind == "control")}
-        for name in FAULTS:
+        for name in faults:
             vals = [r[n] for kind, _, r in runs if kind == name]
             if vals:
                 row[name] = min(vals)

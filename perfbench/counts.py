@@ -64,3 +64,20 @@ def joints_flops(S: int, J: int, P: int, coeffs: int, nnz_sub: int,
     return (2.0 * J * 3 * coeffs + 2.0 * S * 3 * coeffs + 2.0 * P * S * 3
             + 128.0 * J + lbs_counts(1, S, J, nnz_sub)[0]
             + 18.0 * landmarks + 10.0 * keypoints)
+
+
+def vposer_flops(latent: int, hidden: int, joints: int) -> float:
+    """Operations of one lane's VPoser v1 decode: the three products with
+    their biases (latent -> hidden -> hidden -> 6 x joints), a leaky ReLU
+    (one multiply) on each hidden unit, and per joint Gram-Schmidt from 6D
+    to a rotation, 38 (two normalisations of 3-vectors at 9: three
+    squares, two adds, a root, three divisions; a dot and its subtraction
+    11; a cross product 9), and the log map, 19 (trace and cosine 4, the
+    skew part 3, its norm and the sine 7, the angle and its ratio to the
+    sine 2, the scaling 3).  The encode of each frame's starting latent,
+    once a frame (~0.63 MFLOP against some 2,900 decodes a frame), is left
+    out as below the noise of any reading."""
+    out = 6 * joints
+    return (2.0 * (latent * hidden + hidden * hidden + hidden * out)
+            + 2 * hidden + out + 2 * hidden + (38 + 19) * joints)
+

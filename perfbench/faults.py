@@ -12,7 +12,15 @@ while the window runs and while its energy is asked for after
   no_collision  the self-collision term's weight 0 in every stage;
   k3_zero       kernel K3 (the collision term's gradient scattered back to
                 the vertices) returns zeros;
-  half_iters    half the iterations and evaluations per stage.
+  half_iters    half the iterations and evaluations per stage;
+  vposer_weight one entry of the VPoser decoder's output layer (joint 0's
+                third 6D entry, through its bias) moved by 0.01;
+  vposer_detached
+                the decoded pose detached from the latent, so that z takes
+                no gradient through the forward.
+
+The two VPoser faults act only where the preset uses VPoser
+(`VPOSER_ONLY`); elsewhere they leave the program as it is.
 
 A cell on one card exchanges nothing between cards, so the fault of a
 left-out exchange does not apply.
@@ -114,6 +122,32 @@ def half_iters():
     return _patched(session, "fit_batch", make)
 
 
+def vposer_weight():
+    import smplifyx_torch.models.vposer as vposer
+
+    def make(rot6d):
+        def moved(x):
+            x = x.clone()
+            x[..., 0, 2] += 0.01
+            return rot6d(x)
+        return moved
+
+    return _patched(vposer, "rot6d_to_rotmat", make)
+
+
+def vposer_detached():
+    import smplifyx_torch.models.vposer as vposer
+
+    def make(log_map):
+        def detached(R):
+            return log_map(R).detach()
+        return detached
+
+    return _patched(vposer, "rotmat_to_aa", make)
+
+
 FAULTS = {"unchanged": unchanged, "half_batch": half_batch, "mesh": mesh,
           "no_collision": no_collision, "k3_zero": k3_zero,
-          "half_iters": half_iters}
+          "half_iters": half_iters, "vposer_weight": vposer_weight,
+          "vposer_detached": vposer_detached}
+VPOSER_ONLY = ("vposer_weight", "vposer_detached")

@@ -16,7 +16,11 @@ around each joint, and shape, expression and pose directions are affine,
 drawn from a `torch.Generator` on the given device in a few large calls,
 so a later change to the program cannot move the yardstick.  The files it
 is written to (`write_model`) are what a user of the program has: an
-SMPL-X .npz and a part-segmentation pickle.
+SMPL-X .npz and a part-segmentation pickle.  A configuration that sets
+`use_vposer` also has a VPoser v1 checkpoint drawn from the seed
+(`vposer_params`, `write_vposer`), and its traffic mix gives
+`vposer_latent_std`, by which its bodies' poses are drawn as decoded
+latents.
 """
 
 from __future__ import annotations
@@ -116,6 +120,10 @@ VERTEX_JOINT_SPOTS = (
     + [(-0.83, 0.45, z) for z in (-0.03, -0.015, 0, 0.015, 0.03)])
 MOUTH = (0.0, 0.575, 0.09)      # where the surface is cut open
 FACE_FRONT = (0.0, 0.60, 0.05)  # face landmarks: faces around here
+
+
+# VPoser v1's body pose: 21 joints in axis-angle.
+VPOSER_JOINTS = 21
 
 
 def generator(seed: int, device) -> torch.Tensor:
@@ -384,14 +392,81 @@ def write_model(model: dict, folder: str) -> dict:
     return paths
 
 
+def vposer_params(vposer_cfg: dict, latent_dim: int, seed: int,
+                  device) -> dict:
+    """A VPoser v1 state_dict (human_body_prior's names, float32 on
+    `device`) drawn from `seed` on a stream of its own, with the preset's
+    `vposer_latent_dim` and the configuration's `vposer` section (`hidden`,
+    the published width, and `mean_pose` as [index, value] pairs).  Every
+    Linear is uniform in +-1/sqrt(fan_in), torch's default bounds.  The
+    BatchNorms' running statistics lie away from the identity: the
+    first's mean is `mean_pose` moved by 0.05 rad, its variance 0.01-0.03
+    rad^2 (the poses' spread), the second's mean and variance about the
+    first hidden layer's; their affine weights 0.8-1.2, biases 0.1 about
+    0.  The output layer's bias is the 6D form of `mean_pose` less what
+    the layer adds at z = 0, so that the decoder gives `mean_pose` at
+    z = 0, as a trained one gives a mean pose near it."""
+    gen = generator(seed + 5, device)
+    L, H = latent_dim, vposer_cfg["hidden"]
+    P = 3 * VPOSER_JOINTS
+    linears = {"bodyprior_enc_fc1": (P, H), "bodyprior_enc_fc2": (H, H),
+               "bodyprior_enc_mu": (H, L), "bodyprior_enc_logvar": (H, L),
+               "bodyprior_dec_fc1": (L, H), "bodyprior_dec_fc2": (H, H),
+               "bodyprior_dec_out": (H, 6 * VPOSER_JOINTS)}
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
+
+    sd = {}
+    for name, (n_in, n_out) in linears.items():
+        b = 1.0 / n_in ** 0.5
+        sd[name + ".weight"] = uniform((n_out, n_in), -b, b)
+        sd[name + ".bias"] = uniform((n_out,), -b, b)
+    mean = torch.zeros(P, device=device)
+    for i, v in vposer_cfg["mean_pose"]:
+        mean[i] += v
+    stats = {"bodyprior_enc_bn1": (mean, 0.05, (0.01, 0.03)),
+             "bodyprior_enc_bn2": (torch.zeros(H, device=device), 0.1,
+                                   (0.05, 0.2))}
+    for name, (mu, spread, var) in stats.items():
+        n = mu.numel()
+        sd[name + ".running_mean"] = mu + spread * torch.randn(
+            n, generator=gen, device=device)
+        sd[name + ".running_var"] = uniform((n,), *var)
+        sd[name + ".weight"] = uniform((n,), 0.8, 1.2)
+        sd[name + ".bias"] = 0.1 * torch.randn(n, generator=gen, device=device)
+
+    def fc(name, x):
+        return x @ sd[name + ".weight"].double().T + sd[name + ".bias"].double()
+
+    h0 = ref.leaky_relu(fc("bodyprior_dec_fc2", ref.leaky_relu(
+        sd["bodyprior_dec_fc1.bias"].double()[None])))
+    R = ref.rodrigues(mean.double().reshape(VPOSER_JOINTS, 3))
+    six = R[..., :2].reshape(-1)
+    sd["bodyprior_dec_out.bias"] = (six - h0[0] @ sd[
+        "bodyprior_dec_out.weight"].double().T).float()
+    return sd
+
+
+def write_vposer(params: dict, folder: str) -> str:
+    """Write a VPoser state_dict as a user's checkpoint; returns its path."""
+    path = osp.join(folder, "vposer_v1.pt")
+    torch.save({k: v.detach().cpu() for k, v in params.items()}, path)
+    return path
+
+
 def ground_truth(traffic: dict, num_frames: int, focal: float, seed: int,
-                 device, nh: int, nb: int, ne: int) -> dict:
+                 device, nh: int, nb: int, ne: int,
+                 vposer: "ref.VPoser | None" = None) -> dict:
     """Ground-truth bodies and cameras of `num_frames` frames, float64 on
     `device`: every parameter of the flat layout, each axis-angle body
     component `pose_std` about the traffic's `body_pose_mean` ([index,
     value] pairs: the arms lowered to the sides), and the camera
     translation (depth scaled with the focal length, so a body covers the
-    same share of the image at any focal)."""
+    same share of the image at any focal).  Given a `vposer`, the body
+    poses are instead the decodes of latents z ~ N(0, the traffic's
+    `vposer_latent_std`, which it must give) (`truth_latents`), so that
+    each lies in the decoder's image; every other draw stays."""
     gen = generator(seed + 2, device)
 
     def normal(n, scale):
@@ -404,6 +479,10 @@ def ground_truth(traffic: dict, num_frames: int, focal: float, seed: int,
     body_pose = normal(63, traffic["pose_std"])
     for i, v in traffic.get("body_pose_mean", []):
         body_pose[:, i] += v
+    if vposer is not None:
+        body_pose = vposer.decode(truth_latents(traffic, num_frames,
+                                                vposer.latent_dim, seed,
+                                                device))
     return dict(
         global_orient=normal(3, traffic["orient_std"]),
         body_pose=body_pose,
@@ -417,6 +496,16 @@ def ground_truth(traffic: dict, num_frames: int, focal: float, seed: int,
         cam_t=torch.cat([normal(2, traffic["cam_xy_std"]),
                          depth * focal / 1000.0], dim=1),
     )
+
+
+def truth_latents(traffic: dict, num_frames: int, latent_dim: int, seed: int,
+                  device) -> torch.Tensor:
+    """The latents [num_frames, latent_dim] whose decodes are the truth's
+    body poses under VPoser: N(0, `vposer_latent_std`), float64, on a
+    stream of their own."""
+    gen = generator(seed + 6, device)
+    return torch.randn(num_frames, latent_dim, generator=gen, device=device,
+                       dtype=torch.float64) * traffic["vposer_latent_std"]
 
 
 def regression(gt: dict, traffic: dict, seed: int, device) -> dict:

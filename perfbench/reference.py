@@ -1,12 +1,14 @@
-"""The plain reference: SMPL-X forward, pinhole projection, the SMPLify
-energy of a stage with its exact self-collision term, and
-Procrustes-aligned vertex error, in plain PyTorch.
+"""The plain reference: SMPL-X forward, pinhole projection, VPoser v1's
+decoder and encoder, the SMPLify energy of a stage with its exact
+self-collision term, and Procrustes-aligned vertex error, in plain
+PyTorch.
 
 It imports nothing of the program under test.  It reads the same files the
-program reads (the SMPL-X .npz, the part segmentation) and the
-configuration's own numbers, and works out again whatever
-the program derives from them: the joint map, the flat parameter layout,
-the stage weights, the part filter and the collision pairs.  Every product
+program reads (the SMPL-X .npz, the part segmentation, the VPoser
+state_dict) and the configuration's own numbers, and works out again
+whatever the program derives from them: the joint map, the flat parameter
+layout, the stage weights, the latent the regressor's pose encodes to,
+the part filter and the collision pairs.  Every product
 runs in the dtype a `Body` is built with; float64 is the yardstick, and
 float32 with TF32 matmuls (`tf32=True`) is the control: the precision one
 step below the configuration's float32 with TF32 off.
@@ -47,6 +49,10 @@ NECK_CHAIN = (15, 12, 9, 6, 3, 0)      # head to root
 BEND_IDXS = (52, 55, 9, 12)
 BEND_SIGNS = (1.0, -1.0, -1.0, -1.0)
 BENDING_FACTOR = 3.17
+# VPoser v1's leaky ReLU slope and BatchNorm epsilon (human_body_prior).
+VPOSER_SLOPE = 0.2
+VPOSER_BN_EPS = 1e-5
+
 
 @contextlib.contextmanager
 def matmul_precision(tf32: bool):
@@ -208,12 +214,105 @@ class Body:
         return torch.clamp(bucket, 0, self.dyn_faces.shape[0] - 1)
 
 
+# ------------------------------------------------------------- VPoser v1
+
+
+def rot6d_to_rotmat(x: torch.Tensor) -> torch.Tensor:
+    """Continuous 6D rotations [..., 6] (the first two columns of the
+    matrix, row by row: x.reshape(3, 2)) -> [..., 3, 3], by Gram-Schmidt."""
+    a = x.reshape(*x.shape[:-1], 3, 2)
+    b1 = a[..., 0] / a[..., 0].norm(dim=-1, keepdim=True)
+    a2 = a[..., 1] - (b1 * a[..., 1]).sum(-1, keepdim=True) * b1
+    b2 = a2 / a2.norm(dim=-1, keepdim=True)
+    return torch.stack([b1, b2, torch.linalg.cross(b1, b2, dim=-1)], -1)
+
+
+def log_map(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices [..., 3, 3] -> axis-angle [..., 3].  Below a
+    quarter turn the axis is the skew part over twice the sine; above it,
+    where that sine runs to 0 at a half turn, the axis is the largest
+    column of (R + R^T)/2 - cos I = (1 - cos) n n^T, signed along the skew
+    part.  Each branch reads a harmless stand-in where it is not taken, so
+    that its gradient there is no NaN."""
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    trace = R.diagonal(dim1=-2, dim2=-1).sum(-1)
+    cos = ((trace - 1) / 2).clamp(-1, 1)
+    skew = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                        R[..., 1, 0] - R[..., 0, 1]], -1)
+    q = (skew * skew).sum(-1)
+    sin = torch.where(q > 0, torch.sqrt(torch.where(q > 0, q, 1)) / 2, 0)
+    angle = torch.atan2(sin, cos)
+    ratio = torch.where(sin > 0, angle / torch.where(sin > 0, sin, 1), 1)
+    near_zero = skew * (ratio / 2)[..., None]
+
+    wide = cos <= 0
+    Rw = torch.where(wide[..., None, None], R, torch.diag(
+        torch.tensor([1.0, -1.0, -1.0], dtype=R.dtype, device=R.device)))
+    cw = torch.where(wide, cos, -1)
+    S = (Rw + Rw.transpose(-1, -2)) / 2 - cw[..., None, None] * eye
+    col = S.diagonal(dim1=-2, dim2=-1).argmax(-1)
+    v = torch.take_along_dim(S, col[..., None, None].expand(
+        *col.shape, 3, 1), -1)[..., 0]
+    n = v / v.norm(dim=-1, keepdim=True)
+    sign = torch.where((n * skew).sum(-1) < 0, -1.0, 1.0).to(R.dtype)
+    near_pi = n * (sign * angle)[..., None]
+    return torch.where(wide[..., None], near_pi, near_zero)
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x >= 0, x, VPOSER_SLOPE * x)
+
+
+class VPoser:
+    """VPoser v1 (human_body_prior) from its state_dict file, in inference
+    mode, in one dtype on one device: the decoder z -> leaky(fc1) ->
+    leaky(fc2) -> fc out -> 6D per joint -> rotation -> axis-angle, and the
+    encoder's mean: BatchNorm on running statistics -> leaky(fc1) ->
+    BatchNorm -> leaky(fc2) -> the mu head."""
+
+    def __init__(self, path: str, dtype=torch.float64, device="cpu",
+                 tf32: bool = False):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        self.dtype, self.device, self.tf32 = dtype, torch.device(device), tf32
+        self.p = {k: v.to(self.device, dtype) for k, v in sd.items()
+                  if not k.endswith("num_batches_tracked")}
+        self.hidden, self.latent_dim = self.p["bodyprior_dec_fc1.weight"].shape
+        self.num_joints = self.p["bodyprior_dec_out.weight"].shape[0] // 6
+
+    def _fc(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.p[name + ".weight"].T + self.p[name + ".bias"]
+
+    def _bn(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        mean, var, w, b = (self.p[f"{name}.{k}"] for k in
+                           ("running_mean", "running_var", "weight", "bias"))
+        return (x - mean) / torch.sqrt(var + VPOSER_BN_EPS) * w + b
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Latents [n, L] -> body poses [n, 3 x joints] in axis-angle."""
+        with matmul_precision(self.tf32):
+            h = leaky_relu(self._fc("bodyprior_dec_fc1", z.to(self.dtype)))
+            h = leaky_relu(self._fc("bodyprior_dec_fc2", h))
+            out = self._fc("bodyprior_dec_out", h)
+            R = rot6d_to_rotmat(out.reshape(-1, self.num_joints, 6))
+            return log_map(R).reshape(z.shape[0], -1)
+
+    def encode_mean(self, pose: torch.Tensor) -> torch.Tensor:
+        """Body poses [n, 3 x joints] -> the posterior's mean [n, L]."""
+        with matmul_precision(self.tf32):
+            x = self._bn("bodyprior_enc_bn1", pose.to(self.device, self.dtype))
+            h = leaky_relu(self._fc("bodyprior_enc_fc1", x))
+            h = leaky_relu(self._fc("bodyprior_enc_fc2",
+                                    self._bn("bodyprior_enc_bn2", h)))
+            return self._fc("bodyprior_enc_mu", h)
+
+
 # ------------------------------------------------------------- the energy
 
 
 def layout(preset: dict) -> dict:
-    """Name -> (offset, size) of the flat parameter vector of a preset."""
-    body = 63
+    """Name -> (offset, size) of the flat parameter vector of a preset:
+    under VPoser the body segment is the latent."""
+    body = preset["vposer_latent_dim"] if preset["use_vposer"] else 63
     hand = preset["num_pca_comps"] if preset["use_pca"] else 45
     sizes = [("cam_t", 3), ("global_orient", 3), ("body", body),
              ("betas", preset["num_betas"]),
@@ -357,18 +456,26 @@ class Collision:
 
 def energy(body: Body, preset: dict, x: torch.Tensor, kp: torch.Tensor,
            focal: float, image_hw, collision=None, stage: int = -1,
-           reg_body: torch.Tensor | None = None) -> dict:
+           reg_body: torch.Tensor | None = None,
+           vposer: VPoser | None = None) -> dict:
     """The SMPLify energy terms [B] of `stage` (the last by default) at
     flat parameters x [B, D] against keypoints kp [B, K, 3], with the
     body's dtype; the forward's outputs; and the exact collision pairs
     scored per frame.  Under a regression prior the pose prior is the
-    distance from the regressor's pose `reg_body`."""
-    k = stage % len(preset["body_pose_prior_weights"])
+    distance from the regressor's pose `reg_body`.  Under VPoser the body
+    segment is the latent z, which `vposer` decodes for the forward and
+    the bending prior; the pose prior is |z|^2, and in the last stage
+    under a regression prior |z - encode_mean(reg_body)|^2."""
+    num_stages = len(preset["body_pose_prior_weights"])
+    k = stage % num_stages
     w = stage_weights(preset, k)
     x = x.to(body.dtype)
     kp = kp.to(device=x.device, dtype=body.dtype)
     seg = unpack(preset, x)
-    body_pose = seg["body"]
+    if preset["use_vposer"] and vposer is None:
+        raise ValueError("a VPoser preset needs the VPoser")
+    body_pose = vposer.decode(seg["body"]) if preset["use_vposer"] \
+        else seg["body"]
     out = body.forward(params_of(seg, body_pose))
     H, W = image_hw
     center = torch.tensor([W / 2.0, H / 2.0], dtype=x.dtype, device=x.device)
@@ -378,7 +485,11 @@ def energy(body: Body, preset: dict, x: torch.Tensor, kp: torch.Tensor,
     rho2 = float(preset["rho"]) ** 2
     gm = rho2 * r2 / (r2 + rho2)
     data = (kw[..., None] ** 2 * gm).sum((1, 2)) * (1000.0 / H) ** 2
-    if preset.get("regression_prior"):
+    if preset["use_vposer"]:
+        dev = seg["body"]
+        if preset.get("regression_prior") and k == num_stages - 1:
+            dev = dev - vposer.encode_mean(reg_body)
+    elif preset.get("regression_prior"):
         dev = body_pose - reg_body.to(device=x.device, dtype=x.dtype)
     else:
         dev = body_pose

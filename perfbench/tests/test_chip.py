@@ -25,14 +25,13 @@ def _card():
 
 @pytest.mark.cuda
 def test_the_control_fails_where_the_program_passes():
-    """At full width and four frames: the program's mesh, keypoints,
-    energy and gradient within their limits, the TF32 control's beyond
-    one of them."""
+    """At full width and four frames: the program's mesh, keypoints and
+    gradient within their limits, the TF32 control's beyond one of them."""
     _card()
     m = Manifest()
     cell = m.workload(CELL)
     limits = m.config(cell["config"])["correct_limits"]
-    exact = ("mesh_gap_mm", "joints_gap_mm", "energy_gap", "grad_gap")
+    exact = ("mesh_gap_mm", "joints_gap_mm", "grad_gap")
     out = run_cell(m, cell, 5, 0.0, False, overrides=SMALL, control=True)
     for n in exact:
         assert out["checks"][n]["value"] <= limits[n], n

@@ -1,5 +1,7 @@
 """The operation and byte counts on hand-counted shapes."""
 
+import pytest
+
 from perfbench import counts
 
 
@@ -32,3 +34,41 @@ def test_peaks_are_the_published_h100_sxm_rates():
     pk = counts.peak("NVIDIA H100 80GB HBM3")
     assert pk == {"fp32_flops": 67e12, "hbm_bytes": 3.35e12}
     assert counts.peak("a card with no published row") is None
+
+
+def test_vposer_flops_by_hand():
+    # latent 1, hidden 2, 1 joint (6 outputs): products 2*(2 + 4 + 12) =
+    # 36, biases 2 + 2 + 6, leaky 4, Gram-Schmidt and log map 38 + 19.
+    assert counts.vposer_flops(1, 2, 1) == 36.0 + 10 + 4 + 57
+    # the published widths: ~0.69 MFLOP a lane
+    assert 0.68e6 < counts.vposer_flops(32, 512, 21) < 0.70e6
+
+
+def _run(vposer):
+    import numpy as np
+    from types import SimpleNamespace
+
+    shapes = dict(V=10, J=2, P=9, coeffs=3, nnz_w=20, nnz_jreg=6, S=4,
+                  nnz_sub=8, landmarks=1, keypoints=5, both_orient=True,
+                  coll_stages=[False, True])
+    if vposer is not False:
+        shapes["vposer"] = vposer
+    fit = dict(camera_evals=np.array([3, 5]),
+               stage_evals=np.array([[4, 6], [7, 1]]), seconds=2.0)
+    return SimpleNamespace(peak={"fp32_flops": 1e6}, untraced=[fit, fit],
+                           shapes=shapes)
+
+
+def test_fit_mfu_counts_the_decoder_only_under_vposer():
+    from perfbench.metrics.fit_mfu import read
+
+    plain = read(_run(False))
+    assert read(_run(None)) == plain
+    vp = dict(latent=1, hidden=2, joints=1)
+    dec = counts.vposer_flops(**vp)
+    # per fit: the camera guess and the recovered meshes (2 lanes each),
+    # camera evaluations 8 and body ones 18 over both orientations, each
+    # with its gradient
+    per_fit = dec * (2 + 2 * 8 + 2 * 2 * 18 + 2)
+    extra = 100.0 * 2 * per_fit / (4.0 * 1e6)
+    assert read(_run(vp)) == pytest.approx(plain + extra, rel=1e-12)

@@ -12,16 +12,19 @@ import torch
 
 from perfbench import run
 from perfbench.cell import run_cell
-from perfbench.faults import FAULTS
+from perfbench.faults import FAULTS, VPOSER_ONLY
 from perfbench.manifest import ROOT, Manifest
 from perfbench.tests._tiny import CELL, TINY
+from perfbench.tests._vposer import TINY_VPOSER
 
 SEED = 2_200_000_003
 FAULT_SEED = 1
 # At this size a fit converges within half its iterations, so `half_iters`
 # changes nothing to see; at the cell's own size the card reads it
-# (perfbench/control.py, PERF.md).
-CAUGHT_SMALL = sorted(set(FAULTS) - {"half_iters"})
+# (perfbench/control.py, PERF.md).  The VPoser faults act only under a
+# VPoser preset.
+CAUGHT_SMALL = sorted(set(FAULTS) - {"half_iters", *VPOSER_ONLY})
+CAUGHT_VPOSER = ["unchanged", "mesh", *VPOSER_ONLY]
 
 
 def test_without_a_card_the_run_fails_and_prints_nothing(capsys):
@@ -82,9 +85,27 @@ def test_a_broken_timed_path_is_not_correct(fault):
     assert bool(failed) is (fault is not None)
 
 
-def test_no_jax_in_the_runner_and_reference():
-    """Nothing that perfbench runs loads JAX or the JAX package, compared by
-    the whole top-level name: a run of a tiny cell in a fresh process."""
+@pytest.mark.parametrize("seed", [SEED, 3_500_000_007])
+def test_a_vposer_run_is_correct(seed):
+    """The combined cell under the VPoser preset, at the tests' size: the
+    latent fitted, decoded by the reference's own VPoser."""
+    m = Manifest()
+    out = run_cell(m, m.workload(CELL), seed, 0.0, False, device="cpu",
+                   overrides=TINY_VPOSER)
+    assert out["line"]["correct"] is True, out["checks"]
+    assert out["line"]["failed"] == 0
+
+
+@pytest.mark.parametrize("fault", CAUGHT_VPOSER)
+def test_a_broken_vposer_path_is_not_correct(fault):
+    m = Manifest()
+    out = run_cell(m, m.workload(CELL), FAULT_SEED, 0.0, False,
+                   device="cpu", overrides=TINY_VPOSER, fault=FAULTS[fault]())
+    assert out["line"]["correct"] is False, out["checks"]
+    assert any(c["value"] > c["limit"] for c in out["checks"].values())
+
+
+def _forbidden_after_a_run(overrides: str) -> list:
     code = (
         "import sys, json\n"
         "sys.path.insert(0, {root!r})\n"
@@ -92,15 +113,26 @@ def test_no_jax_in_the_runner_and_reference():
         "from perfbench.cell import run_cell\n"
         "from perfbench.manifest import Manifest\n"
         "from perfbench.tests._tiny import TINY, CELL\n"
+        "from perfbench.tests._vposer import TINY_VPOSER\n"
         "m = Manifest()\n"
         "run_cell(m, m.workload(CELL), 1, 0.0, False, "
-        "device='cpu', overrides=TINY)\n"
+        "device='cpu', overrides={overrides})\n"
         "print(json.dumps(perfbench.run.forbidden_modules()))\n"
-    ).format(root=ROOT)
+    ).format(root=ROOT, overrides=overrides)
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=600, cwd=ROOT)
     assert p.returncode == 0, p.stderr[-2000:]
-    assert json.loads(p.stdout.strip().splitlines()[-1]) == []
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def test_no_jax_in_the_runner_and_reference():
+    """Nothing that perfbench runs loads JAX or the JAX package, compared by
+    the whole top-level name: a run of a tiny cell in a fresh process."""
+    assert _forbidden_after_a_run("TINY") == []
+
+
+def test_no_jax_in_a_vposer_run():
+    assert _forbidden_after_a_run("TINY_VPOSER") == []
 
 
 def test_the_forbidden_check_compares_whole_top_level_names(monkeypatch):

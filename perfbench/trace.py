@@ -11,6 +11,13 @@ The spans are `prepare`, `fit` and `recover` around the window's three
 calls, and `broad_phase` around every `CollisionFn.build` and
 `build_refresh` of the session's collision term.  The marks are launched
 only in a traced run.
+
+The profiler keeps only device activity that it places inside its own
+start and stop, and it places a kernel by the device's clock mapped onto
+the host's, which can be off by some milliseconds, and by over a tenth of
+a second on a loaded host.  So the traced call starts `SETTLE_S` after the
+profiler, and the profiler stops `SETTLE_S` after the call; a trace that
+still lacks a mark raises `IncompleteTrace`.
 """
 
 from __future__ import annotations
@@ -22,9 +29,16 @@ from collections import defaultdict
 import torch
 
 MARK = "spin_kernel"
+# Host seconds between the profiler's start and the first mark, and
+# between the last mark's completion and the profiler's stop.
+SETTLE_S = 1.0
 # Host calls that wait for the device: a read of a device value.
 HOST_READS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
               "cudaEventSynchronize")
+
+
+class IncompleteTrace(RuntimeError):
+    """The trace lacks some of the marks the traced call launched."""
 
 
 def kernel_name(key: str) -> str:
@@ -152,8 +166,8 @@ def read(prof, marks: list) -> dict:
     device = device[first:]
     found = sum(MARK in n for _, _, n in device)
     if found != len(marks):
-        raise RuntimeError(f"the trace holds {found} span marks; the window "
-                           f"launched {len(marks)}")
+        raise IncompleteTrace(f"the trace holds {found} span marks; the "
+                              f"window launched {len(marks)}")
 
     stack, kernels, intervals, edges = [], [], [], []
     m = 0
