@@ -17,6 +17,12 @@ no dropout, and the weights take no gradient; the fit differentiates
 state_dict names, so a v1 checkpoint loads straight into them
 (`load_vposer`).
 
+While the span recorder records (`utils/timing.py`), each decode is a
+`vposer` span with the rows it decodes (`lanes`) and whether autograd
+records it (`grad`: grad mode on and z taking a gradient), autograd's
+pass back through a recorded decode a `vposer` span with `backward=True`,
+and each `encode_mean` one with `encode=True`.
+
 `random_params(seed)` draws a v1 state_dict from a `torch.Generator`.  It
 is not the JAX package's `random_params(seed)`, which draws from JAX's
 PRNG: the two packages' "synthetic" VPosers differ.  To run both on one
@@ -34,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from smplifyx_torch.ops.rotation import rotmat_to_aa
+from smplifyx_torch.utils import timing
 from smplifyx_torch.utils.device import resolve_device
 
 LATENT_DIM = 32
@@ -94,11 +101,17 @@ class VPoser(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """z [..., 32] -> axis-angle body pose [..., 63]."""
-        x = z.reshape(-1, LATENT_DIM)
-        x = leaky_relu(self.bodyprior_dec_fc1(x))
-        x = leaky_relu(self.bodyprior_dec_fc2(x))
-        x = self.bodyprior_dec_out(x)
-        aa = rotmat_to_aa(rot6d_to_rotmat(x.reshape(-1, NUM_JOINTS, 6)))
+        flat = z.reshape(-1, LATENT_DIM)
+        lanes = flat.shape[0]
+        with timing.span("vposer", lanes=lanes, grad=torch.is_grad_enabled()
+                         and z.requires_grad) as sp:
+            x = leaky_relu(self.bodyprior_dec_fc1(flat))
+            x = leaky_relu(self.bodyprior_dec_fc2(x))
+            x = self.bodyprior_dec_out(x)
+            aa = rotmat_to_aa(rot6d_to_rotmat(x.reshape(-1, NUM_JOINTS, 6)))
+            if sp is not None:
+                timing.backward_span("vposer", aa, flat, lanes=lanes,
+                                     backward=True)
         return aa.reshape(*z.shape[:-1], POSE_DIM)
 
     def encode(self, pose: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -114,7 +127,9 @@ class VPoser(nn.Module):
         return mu.reshape(shape), sigma.reshape(shape)
 
     def encode_mean(self, pose: torch.Tensor) -> torch.Tensor:
-        return self.encode(pose)[0]
+        with timing.span("vposer", lanes=pose.numel() // POSE_DIM,
+                         encode=True):
+            return self.encode(pose)[0]
 
 
 def vposer_from_state_dict(state_dict: dict, device="cuda") -> VPoser:

@@ -8,6 +8,7 @@ Counterpart of `smplifyx_tpu/utils/timing.py`:
   * `RECORDER`, `span`, `recording`: the program's own spans at its layer
     boundaries, recorded only while a torch.profiler run is active, on the
     clock the profiler stamps its events with (see `Recorder`);
+    `backward_span` one over autograd's pass back through a block;
   * `trace`: `torch.profiler` around a block, written as a Chrome trace
     (`trace.json` under the given folder);
   * `profile_summary`: a finished torch.profiler run summed (busy ms,
@@ -130,6 +131,34 @@ class Recorder:
 RECORDER = Recorder()
 recording = RECORDER.recording
 span = RECORDER.span
+
+
+def backward_span(name: str, out: torch.Tensor, into: torch.Tensor,
+                  **attrs) -> None:
+    """Record `name` with `attrs` over autograd's pass back from `out` to
+    `into`, a tensor `out` was computed from: a hook opens it once out's
+    gradient is complete and another closes it once into's is.  Autograd
+    runs a graph's nodes latest first, so the span holds the backward of
+    the operations between the two and nothing else.  The hooks run on the
+    thread that runs the backward (on a card, autograd's device thread,
+    while the thread that asked for the gradient waits), so the span nests
+    in the one open there.  Only while recording and where out takes a
+    gradient; a backward that never reaches out records nothing."""
+    if not RECORDER.recording() or not out.requires_grad:
+        return
+    opened = []
+
+    def open_span(grad):
+        ctx = _Opened(RECORDER, name, False, dict(attrs))
+        ctx.__enter__()
+        opened.append(ctx)
+
+    def close_span(grad):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    out.register_hook(open_span)
+    into.register_hook(close_span)
 
 
 @dataclass

@@ -528,3 +528,43 @@ def test_vertex_sharded_forward_on_card_matches_unsharded(card):
         assert float(err) <= 2e-5, name
     scale = max(1.0, float(grads[0].abs().max()))
     assert float((grads[0] - grads[1]).abs().max()) / scale <= 1e-4
+
+
+def test_vposer_backward_span_nests_on_autograds_device_thread(card):
+    """On the card autograd runs the backward on its own device thread,
+    and the hooks of the decode's backward span with it: the span still
+    opens inside the span the caller holds open, closes before it, and
+    leaves the recorder's stack as it found it."""
+    import threading
+
+    from smplifyx_torch.utils import timing
+
+    net = tv.vposer_from_state_dict(tv.random_params(0), device=card)
+    z = torch.randn(256, tv.LATENT_DIM, device=card, requires_grad=True)
+    threads = []
+    timing.RECORDER.clear()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]):
+            for _ in range(3):
+                with timing.span("evaluation", lanes=256, grad=True):
+                    pose = net.decode(z)
+                    pose.register_hook(
+                        lambda g: threads.append(threading.get_ident()))
+                    torch.autograd.grad(pose.square().sum(), z)
+                    with timing.span("after"):
+                        pass
+        spans = list(timing.RECORDER.spans)
+        assert not timing.RECORDER.open
+    finally:
+        timing.RECORDER.clear()
+    assert len(threads) == 3 and threading.get_ident() not in threads
+    assert [s.name for s in spans] == ["evaluation", "vposer", "vposer",
+                                       "after"] * 3
+    for k in range(3):
+        ev, fwd, bwd, after = spans[4 * k:4 * k + 4]
+        assert fwd.parent == bwd.parent == after.parent == 4 * k
+        assert fwd.attrs == {"lanes": 256, "grad": True}
+        assert bwd.attrs == {"lanes": 256, "backward": True}
+        assert ev.start_ns <= fwd.end_ns <= bwd.start_ns <= bwd.end_ns \
+            <= after.start_ns <= ev.end_ns

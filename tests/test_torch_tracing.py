@@ -250,3 +250,82 @@ def test_the_record_is_bounded(rec, monkeypatch):
                 rec.clear()
         assert [s.name for s in rec.spans] == ["b"]
     assert fit.end_ns is not None
+
+
+@pytest.fixture(scope="module")
+def vposer_fit():
+    """The slice under the combined VPoser preset, a call as a user's:
+    `prepare_batch` (the regressors' poses encoded to latents), then
+    `FitSession.fit`, under the profiler; and the recorder's spans."""
+    from smplifyx_torch.data.keypoints import FrameRecord
+    from smplifyx_torch.data.regressors import RegressionPrior
+    from smplifyx_torch.fitting.prepare import prepare_batch
+    from smplifyx_torch.models.sparse import build_joints_model
+    from smplifyx_torch.problem import IMG_H, IMG_W, build_problem, slice_session
+
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        session, model = slice_session(V, "cpu", maxiters=3, use_vposer=True,
+                                       vposer_ckpt="synthetic")
+        _, _, frames, _, _ = build_problem(B, V, device="cpu", model=model)
+        kp = torch.cat([frames.gt_joints, frames.conf[..., None]], -1).numpy()
+        gen = torch.Generator().manual_seed(5)
+        records = [FrameRecord(fn=f"f{i}", img_path="", keypoints=kp[i][None],
+                               img_size=(int(IMG_H), int(IMG_W)))
+                   for i in range(B)]
+        regression = [RegressionPrior(
+            body_pose=(torch.randn(63, generator=gen) * 0.2).numpy(),
+            global_orient=torch.zeros(3).numpy()) for _ in range(B)]
+        jm = build_joints_model(model)
+        timing.RECORDER.clear()
+        with profiled():
+            prep = prepare_batch(session.cfg, records, session.joint_weights(),
+                                 regression=regression, vposer=session.vposer,
+                                 device="cpu")
+            session.fit(model, jm, prep.frames, prep.x0)
+        spans = list(timing.RECORDER.spans)
+        timing.RECORDER.clear()
+        return spans
+    finally:
+        torch.set_num_threads(old)
+
+
+def test_vposer_spans_hold_each_decode_its_backward_and_the_encode(vposer_fit):
+    """One `vposer` span per decode of an evaluation, with its lanes; one
+    over autograd's pass back through it in each evaluation that takes the
+    gradient, nested in the evaluation; one encode, before the fit."""
+    spans = vposer_fit
+    encode = [s for s in spans if s.name == "vposer" and s.attrs.get("encode")]
+    assert len(encode) == 1 and encode[0].parent is None
+    assert encode[0].attrs["lanes"] == B
+    fit, = [s for s in spans if s.name == "fit"]
+    assert encode[0].end_ns <= fit.start_ns
+    evals = [i for i, s in enumerate(spans) if s.name == "evaluation"]
+    assert evals
+    for i in evals:
+        ev = spans[i]
+        kids = [s for s in spans if s.parent == i]
+        fwd = [s for s in kids if s.name == "vposer"
+               and not s.attrs.get("backward")]
+        bwd = [s for s in kids if s.name == "vposer" and s.attrs.get("backward")]
+        assert [s.attrs["lanes"] for s in fwd] == [ev.attrs["lanes"]]
+        assert fwd[0].attrs["grad"] is ev.attrs["grad"]
+        assert len(bwd) == int(ev.attrs["grad"])
+        for s in kids:
+            assert ev.start_ns <= s.start_ns <= s.end_ns <= ev.end_ns
+        if bwd:
+            assert fwd[0].end_ns <= bwd[0].start_ns
+            assert bwd[0].attrs["lanes"] == ev.attrs["lanes"]
+    # every other decode in the fit takes no gradient: the camera's depth
+    # guess in the fit, the broad phases' vertices in their stage
+    for s in spans:
+        if s.name == "vposer" and s.parent is not None \
+                and spans[s.parent].name != "evaluation":
+            assert spans[s.parent].name in ("fit", "stage")
+            assert not s.attrs["grad"]
+    assert all(s.end_ns is not None for s in spans)
+
+
+def test_a_fit_without_vposer_records_no_vposer_span(fits):
+    assert fits["spans"] and not any(s.name == "vposer" for s in fits["spans"])
