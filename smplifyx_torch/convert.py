@@ -16,7 +16,7 @@ import torch
 from smplifyx_torch.fitting.energy import FrameData, StageWeights
 from smplifyx_torch.fitting.params import FitSettings
 from smplifyx_torch.models.bodymodel import SMPLXModel, model_from_arrays
-from smplifyx_torch.models.sparse import JointsModel
+from smplifyx_torch.models.sparse import JointsModel, landmark_tables
 from smplifyx_torch.models.vposer import VPoser, vposer_from_state_dict
 from smplifyx_torch.ops.collision import CollisionAux, make_aux
 from smplifyx_torch.ops.lbs import lbs_plan
@@ -49,10 +49,17 @@ def smplx_model(fields: dict, device="cuda") -> SMPLXModel:
 
 
 def joints_model(fields: dict, device="cuda") -> JointsModel:
-    """JointsModel with the column plan of its subset's skinning weights."""
+    """JointsModel with the column plan of its subset's skinning weights,
+    its landmark triangles in SMPLXModel's layout (models/sparse.py)."""
     dev = resolve_device(device)
     plan = lbs_plan(_tensor(fields["sub_lbs"], dev))
-    return _build(JointsModel, {**fields, "lbs_plan": plan}, dev)
+    tables = landmark_tables(_tensor(fields["lmk_tri_sub"], dev),
+                             _tensor(fields["dyn_tri_sub"], dev))
+    return _build(JointsModel, {
+        **fields, **tables, "lbs_plan": plan,
+        "extra_joint_vids": fields["extra_idx"],
+        "lmk_bary_coords": fields["lmk_bary"],
+        "dyn_lmk_bary_coords": fields["dyn_bary"]}, dev)
 
 
 def gmm_prior(fields: dict, device="cuda") -> GMMPrior:

@@ -24,13 +24,17 @@ from typing import Callable, Optional
 
 import torch
 
-from smplifyx_torch.fitting.params import FitSettings, body_params_from_flat
+from smplifyx_torch.fitting.params import (
+    FitSettings,
+    body_params_from_flat,
+    unpack,
+)
+from smplifyx_torch.models import forward, sparse
 from smplifyx_torch.models.bodymodel import SMPLXModel
-from smplifyx_torch.models.forward import smplx_forward
-from smplifyx_torch.models.sparse import joints_forward
 from smplifyx_torch.ops.camera import CameraParams, project_points
 from smplifyx_torch.ops.robustifier import gmof
 from smplifyx_torch.priors.priors import GMMPrior, angle_prior
+from smplifyx_torch.utils.graphs import segment
 from smplifyx_torch.utils.tensors import TensorFields
 
 
@@ -97,14 +101,63 @@ def stage_joint_weights(settings: FitSettings, frames: FrameData,
     return wvec
 
 
-def _mapped_joints(settings: FitSettings, model, params, joint_map,
-                   joints_model=None) -> torch.Tensor:
-    """Mapped joints via the joints-only forward when a JointsModel is given."""
-    kw = dict(use_pca=settings.use_pca, flat_hand_mean=settings.flat_hand_mean,
-              use_face_contour=settings.use_face_contour, joint_map=joint_map)
-    if joints_model is not None:
-        return joints_forward(joints_model, params, **kw)
-    return smplx_forward(model, params, return_verts=True, **kw).joints
+def _identity(z):
+    return z
+
+
+def _params(settings: FitSettings, x: torch.Tensor, body: tuple):
+    """`body_params_from_flat` of x, its body pose the decoded `body[0]`,
+    or x's own body segment where `body` is empty."""
+    return body_params_from_flat(
+        settings, x, (lambda z: body[0]) if body else _identity)
+
+
+def _skinned(settings: FitSettings, model, joints_model, full_mesh: bool,
+             x: torch.Tensor, decode_body, joint_map, rows_apart: bool):
+    """An evaluation up to the segment that scores its keypoints: (body,
+    args, mapped, verts).
+
+    The decode (a `vposer` segment under VPoser) gives `body`: () where it
+    returns x's body segment itself, which the segments then read from x,
+    else the decoded pose.  The `skin_inputs` segment takes x to the
+    skinning's inputs, kernel K1 skins the full mesh or, given a JointsModel
+    and not `full_mesh`, the landmark subset.  `args` are the next
+    segment's tensors after x and `mapped(*args)` its mapped joints: the
+    skinned vertices `verts`, or with `rows_apart` the rows the keypoints
+    read, gathered outside it (the collision term reads the vertices too,
+    and their gradient then adds up in the eager order)."""
+    z = unpack(settings, x)["body"]
+    decoded = decode_body(z)
+    body = () if decoded is z else (decoded,)
+    fwd, fm = ((forward, model) if full_mesh or joints_model is None
+               else (sparse, joints_model))
+    contour = forward.has_contour(fm, settings.use_face_contour)
+
+    def skin_inputs(x, *body):
+        params, _, _ = _params(settings, x, body)
+        _, rot_mats, posed_joints, A, v_posed = fwd.pose_blends(
+            fm, params, settings.use_pca, settings.flat_hand_mean)
+        bucket = forward.contour_bucket(fm, rot_mats, settings.use_face_contour)
+        return (A, posed_joints, *(() if bucket is None else (bucket,)),
+                *v_posed)
+
+    out = segment("skin_inputs", skin_inputs, x, *body)
+    A, posed_joints = out[:2]
+    buckets = out[2:2 + contour]
+    verts = fwd.skin(fm, A, out[2 + contour:])
+
+    def mapped(posed_joints, *rows):
+        joints = forward.keypoints(fm, posed_joints, rows)
+        return joints if joint_map is None else joints[:, joint_map]
+
+    if rows_apart:
+        rows = forward.landmark_rows(fm, verts, *buckets)
+        return body, (posed_joints, *rows), mapped, verts
+
+    def mapped_verts(posed_joints, verts, *buckets):
+        return mapped(posed_joints, *forward.landmark_rows(fm, verts, *buckets))
+
+    return body, (posed_joints, verts, *buckets), mapped_verts, verts
 
 
 def smplify_energy_terms(
@@ -123,26 +176,58 @@ def smplify_energy_terms(
     rhand_gmm: Optional[GMMPrior] = None,
     collision_fn=None,
     collision_aux=None,
-) -> dict:
-    """Per-term SMPLify objective, each term [B] (w is one stage).
+    *,
+    total: bool = False,
+):
+    """Per-term SMPLify objective, each term [B] (w is one stage); with
+    `total` their sum [B] instead (`smplify_energy`).
 
     With settings.interpenetration the full-mesh forward runs and, given a
     collision_fn, the collision term scores its vertices: on the pair list
     `collision_aux` (a broad phase hoisted out of the line search) or, when
     that is None, on a broad phase run in this evaluation.  Without it
     every term reads only the params and the mapped joints, so the
-    joints-only forward serves whenever a JointsModel is given."""
-    params, cam_t, body_raw = body_params_from_flat(settings, x, decode_body)
-    vertices = None
-    if settings.interpenetration:
-        out = smplx_forward(model, params, use_pca=settings.use_pca,
-                            flat_hand_mean=settings.flat_hand_mean,
-                            use_face_contour=settings.use_face_contour,
-                            joint_map=joint_map, return_verts=True)
-        joints, vertices = out.joints, out.vertices
-    else:
-        joints = _mapped_joints(settings, model, params, joint_map,
-                                joints_model)
+    joints-only forward serves whenever a JointsModel is given.
+
+    The evaluation runs as segments (utils/graphs.py); the sum is the last
+    one's output, the collision term added after it, while the per-term
+    dict comes from an eager last stretch (a segment gives tensors)."""
+    coll = settings.interpenetration and collision_fn is not None
+    body, args, mapped, verts = _skinned(
+        settings, model, joints_model, settings.interpenetration, x,
+        decode_body, joint_map, rows_apart=coll)
+    nb = len(body)
+
+    def energy(x, *rest):
+        body, args = rest[:nb], rest[nb:]
+        params, cam_t, body_raw = _params(settings, x, body)
+        joints = mapped(*args)
+        terms = _smplify_terms(settings, frames, w, stage_idx, num_stages,
+                               gmm, lhand_gmm, rhand_gmm, params, cam_t,
+                               body_raw, joints)
+        if not total:
+            return terms
+        e = (terms["data"] + terms["pose_prior"] + terms["shape"]
+             + terms["bending"] + terms["hands"] + terms["expression"]
+             + terms["jaw"])
+        return e if coll else e + terms["collision"]
+
+    out = (segment("energy", energy, x, *body, *args) if total
+           else energy(x, *body, *args))
+    if not coll:
+        return out
+    pen = (collision_fn(verts) if collision_aux is None
+           else collision_fn.apply(verts, collision_aux))
+    pen_loss = w.coll_loss_weight * pen
+    if total:
+        return out + pen_loss
+    out["collision"] = pen_loss
+    return out
+
+
+def _smplify_terms(settings, frames, w, stage_idx, num_stages, gmm,
+                   lhand_gmm, rhand_gmm, params, cam_t, body_raw, joints):
+    """Every term but the collision's (a zero there), each [B]."""
     proj = project_points(make_camera(frames, cam_t), joints)   # [B, K, 2]
 
     joint_w = stage_joint_weights(settings, frames, w)
@@ -190,25 +275,17 @@ def smplify_energy_terms(
         if settings.jaw_prior_type != "none":
             jaw_loss = sq(params.jaw_pose * w.jaw_prior_weight)
 
-    pen_loss = zero
-    if settings.interpenetration and collision_fn is not None:
-        pen = (collision_fn(vertices) if collision_aux is None
-               else collision_fn.apply(vertices, collision_aux))
-        pen_loss = w.coll_loss_weight * pen
-
     return {
         "data": joint_loss, "pose_prior": pprior, "shape": shape_loss,
         "bending": bend, "hands": hand_loss, "expression": expr_loss,
-        "jaw": jaw_loss, "collision": pen_loss,
+        "jaw": jaw_loss, "collision": zero,
     }
 
 
 def smplify_energy(*args, **kwargs) -> torch.Tensor:
-    """Full SMPLify objective per lane [B]: the sum of the terms."""
-    terms = smplify_energy_terms(*args, **kwargs)
-    return (terms["data"] + terms["pose_prior"] + terms["shape"]
-            + terms["bending"] + terms["hands"] + terms["expression"]
-            + terms["jaw"] + terms["collision"])
+    """Full SMPLify objective per lane [B]: the sum of the terms of
+    `smplify_energy_terms`, the collision term last."""
+    return smplify_energy_terms(*args, total=True, **kwargs)
 
 
 def camera_init_energy(
@@ -224,24 +301,36 @@ def camera_init_energy(
     SMPLifyCameraInitLoss): squared 2D error over the camera-init joints,
     conf-weighted per `camera_conf_mode`, times data_weight^2, plus the
     squared-depth pull towards the similar-triangles estimate."""
-    params, cam_t, _ = body_params_from_flat(settings, x, decode_body)
-    joints = _mapped_joints(settings, model, params, joint_map, joints_model)
-    proj = project_points(make_camera(frames, cam_t), joints)
+    body, args, mapped, _ = _skinned(
+        settings, model, joints_model, False, x, decode_body, joint_map,
+        rows_apart=False)
+    nb = len(body)
 
-    masked = (frames.gt_joints - proj) ** 2 * frames.init_joints_mask[..., None]
-    if settings.camera_conf_mode == "per_joint":
-        joint_loss = torch.sum(masked * frames.conf[..., None] ** 2, dim=(1, 2))
-    elif settings.camera_conf_mode == "global_scale":
-        # Bug-for-bug with the reference broadcast (fitting.py:509-511): the
-        # conf^2 factor becomes a global scale on the data term.
-        conf_sq = torch.sum((frames.conf * frames.init_joints_mask) ** 2, dim=-1)
-        joint_loss = torch.sum(masked, dim=(1, 2)) * conf_sq
-    else:
-        joint_loss = torch.sum(masked, dim=(1, 2))
-    joint_loss = joint_loss * frames.data_weight ** 2
-    depth = frames.depth_loss_weight ** 2 * (
-        cam_t[:, 2] - frames.trans_estimation[:, 2]) ** 2
-    return joint_loss + depth
+    def energy(x, *rest):
+        body, args = rest[:nb], rest[nb:]
+        _, cam_t, _ = _params(settings, x, body)
+        joints = mapped(*args)
+        proj = project_points(make_camera(frames, cam_t), joints)
+
+        masked = ((frames.gt_joints - proj) ** 2
+                  * frames.init_joints_mask[..., None])
+        if settings.camera_conf_mode == "per_joint":
+            joint_loss = torch.sum(masked * frames.conf[..., None] ** 2,
+                                   dim=(1, 2))
+        elif settings.camera_conf_mode == "global_scale":
+            # Bug-for-bug with the reference broadcast (fitting.py:509-511):
+            # the conf^2 factor becomes a global scale on the data term.
+            conf_sq = torch.sum((frames.conf * frames.init_joints_mask) ** 2,
+                                dim=-1)
+            joint_loss = torch.sum(masked, dim=(1, 2)) * conf_sq
+        else:
+            joint_loss = torch.sum(masked, dim=(1, 2))
+        joint_loss = joint_loss * frames.data_weight ** 2
+        depth = frames.depth_loss_weight ** 2 * (
+            cam_t[:, 2] - frames.trans_estimation[:, 2]) ** 2
+        return joint_loss + depth
+
+    return segment("energy", energy, x, *body, *args)
 
 
 def guess_camera_depth(
@@ -258,8 +347,9 @@ def guess_camera_depth(
     """Similar-triangles depth init (reference guess_init,
     fitting.py:36-110): x0 [B, D], gt_joints [B, K, 2], edge_idxs [E, 2],
     focal_length [B] -> [B, 3] = (0, 0, f * mean|edge3d| / mean|edge2d|)."""
-    params, _, _ = body_params_from_flat(settings, x0, decode_body)
-    j3d = _mapped_joints(settings, model, params, joint_map, joints_model)
+    _, args, mapped, _ = _skinned(settings, model, joints_model, False, x0,
+                                  decode_body, joint_map, rows_apart=False)
+    j3d = mapped(*args)
     d3 = j3d[:, edge_idxs[:, 0]] - j3d[:, edge_idxs[:, 1]]
     d2 = gt_joints[:, edge_idxs[:, 0]] - gt_joints[:, edge_idxs[:, 1]]
     len3 = torch.sqrt(torch.sum(d3 ** 2, dim=-1))

@@ -12,7 +12,9 @@ The loops are Python loops.  Each decides whether to go on by reading one
 boolean from the device (`any` lane still running); `LBFGSResult.host_reads`
 counts those reads.  While the span recorder records (`utils/timing.py`),
 every batched call of the objective is an `evaluation` span with the lanes
-it evaluated.
+it evaluated, and `graphed_lanes`: the same where its stretches of plain
+PyTorch replayed from CUDA graphs (`utils/graphs.py`, in a stage that
+`fit_batch` graphs), else 0.
 
 Frozen parameters are a 0/1 mask on the gradient, applied with `where`
 (not a multiply: NaN * 0 is NaN), which keeps every search direction inside
@@ -26,7 +28,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from smplifyx_torch.utils import timing
+from smplifyx_torch.utils import graphs, timing
 
 _BRACKET = 0
 _ZOOM = 1
@@ -369,16 +371,27 @@ def minimize(
         return fun(x) if aux_fn is None else fun(x, aux)
 
     def value_grad(x, aux):
-        with timing.span("evaluation", lanes=B, grad=True):
+        with timing.span("evaluation", lanes=B, grad=True) as sp, \
+                graphs.evaluation(True) as graphed:
             x = x.detach().requires_grad_(True)
             with torch.enable_grad():
                 f = call(x, aux)
                 (g,) = torch.autograd.grad(f.sum(), x)
-            return f.detach(), torch.where(free, g, 0.0)
+            _graphed_lanes(sp, graphed)
+            # A replay's f is its graph's output, which the next overwrites.
+            f = f.detach().clone() if graphed else f.detach()
+            return f, torch.where(free, g, 0.0)
 
     def value(x, aux):
-        with timing.span("evaluation", lanes=B, grad=False), torch.no_grad():
-            return call(x, aux)
+        with timing.span("evaluation", lanes=B, grad=False) as sp, \
+                graphs.evaluation(False) as graphed, torch.no_grad():
+            f = call(x, aux)
+            _graphed_lanes(sp, graphed)
+            return f.clone() if graphed else f
+
+    def _graphed_lanes(sp, graphed):
+        if sp is not None:
+            sp.attrs["graphed_lanes"] = B if graphed else 0
 
     x = x0.detach()
     aux = aux_fn(x) if aux_fn is not None else None

@@ -12,6 +12,10 @@ While the span recorder records (`utils/timing.py`), a fit is a `fit` span
 with its frames, and each stage's minimization a `stage` span with its
 lanes and the per-lane evaluations it needed (a device scalar, of both
 orientations: taken before the choice).
+
+On the card each L-BFGS stage replays its evaluations' stretches of plain
+PyTorch from CUDA graphs (`utils/graphs.py`) where `_graphed` admits it:
+a model of one vertex block, and no broad phase inside the evaluations.  Elsewhere, the CPU included, every evaluation runs eagerly.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from smplifyx_torch.fitting.params import (
 from smplifyx_torch.models.bodymodel import SMPLXModel
 from smplifyx_torch.models.forward import smplx_forward
 from smplifyx_torch.ops.rotation import flip_global_orient_y
-from smplifyx_torch.utils import timing
+from smplifyx_torch.utils import graphs, timing
 from smplifyx_torch.utils.device import full_f32_matmuls, resolve_device
 
 
@@ -109,10 +113,23 @@ def _first_order(optim_type: str):
     return run
 
 
-def _run_stage(run_min, stage, collision: bool, fun, x, mask, cfg, **aux):
-    """One stage's minimization, recorded as a `stage` span."""
+def _graphed(x: torch.Tensor, model, use_lbfgs: bool,
+             broad_phase_per_eval: bool) -> bool:
+    """Whether a stage's evaluations replay CUDA graphs: x on a card, the
+    stage minimized by L-BFGS, a model of one vertex block, and no broad
+    phase inside the evaluations (it reads the device to size its pairs).
+    The decision reads only the stage's inputs."""
+    return (x.device.type == "cuda" and use_lbfgs and len(model.blocks) == 1
+            and not broad_phase_per_eval)
+
+
+def _run_stage(run_min, stage, collision: bool, fun, x, mask, cfg,
+               graphed: bool, **aux):
+    """One stage's minimization, recorded as a `stage` span; with `graphed`
+    its evaluations replay CUDA graphs from the second on
+    (utils/graphs.py)."""
     with timing.span("stage", stage=stage, collision=collision,
-                     lanes=x.shape[0]) as sp:
+                     lanes=x.shape[0]) as sp, graphs.stage(graphed):
         res = run_min(fun, x, mask, cfg, **aux)
         if sp is not None:
             sp.attrs["lane_evals"] = res.n_evals.sum()
@@ -200,6 +217,7 @@ def _fit_batch(model, settings, options, stage_weights, frames, x0,
                                          decode_body, joint_map,
                                          joints_model=joints_model),
             x0, camera_stage_mask(settings, dev), options.camera_lbfgs,
+            _graphed(x0, model, use_lbfgs, False),
         )
         reads += cam_res.host_reads
         x_cam = cam_res.x
@@ -263,8 +281,9 @@ def _fit_batch(model, settings, options, stage_weights, frames, x0,
             def aux_refresh_fn(z, aux):
                 return collision_fn.build_refresh(vertices_of(z), aux)
 
+        graphed = _graphed(x_cur, model, use_lbfgs, with_coll and not hoist)
         res = _run_stage(run_min, k, with_coll, fun, x_cur, body_mask,
-                         options.lbfgs, aux_fn=aux_fn,
+                         options.lbfgs, graphed, aux_fn=aux_fn,
                          aux_refresh_fn=aux_refresh_fn)
         reads += res.host_reads
         x_cur = res.x

@@ -101,6 +101,14 @@ def _chain_indices(parents: tuple, device: torch.device):
     return steps, inverse, par_of
 
 
+@lru_cache(maxsize=None)
+def _homogeneous_row(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The bottom row (0, 0, 0, 1) of a 4x4 transform, made once per device
+    and dtype: a fresh one would be a host-to-device copy in every forward,
+    which a CUDA graph cannot hold."""
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+
+
 def _rigid_transform_chain(rot_mats: torch.Tensor, joints: torch.Tensor,
                            parents) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward kinematics along the static parent tree, one batched 4x4
@@ -114,8 +122,7 @@ def _rigid_transform_chain(rot_mats: torch.Tensor, joints: torch.Tensor,
     steps, inverse, par_of = _chain_indices(tuple(parents), joints.device)
     rel = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, par_of]], dim=1)
     T_local = torch.cat([rot_mats, rel[..., None]], dim=-1)     # [B, J, 3, 4]
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot_mats.dtype,
-                          device=rot_mats.device).expand(B, J, 1, 4)
+    bottom = _homogeneous_row(rot_mats.dtype, rot_mats.device).expand(B, J, 1, 4)
     T_local = torch.cat([T_local, bottom], dim=-2)              # [B, J, 4, 4]
 
     acc = T_local[:, :1]
@@ -179,19 +186,12 @@ def _full_pose(params: BodyParams, J: int, components, means, use_pca: bool,
     return torch.cat(parts, dim=-1)
 
 
-def smplx_forward(
-    model: SMPLXModel,
-    params: BodyParams,
-    *,
-    use_pca: bool = True,
-    flat_hand_mean: bool = False,
-    use_face_contour: bool = True,
-    joint_map: Optional[torch.Tensor] = None,
-    return_verts: bool = True,
-) -> SMPLXOutput:
-    """Batched SMPL-X forward; all params [B, ...].  `model` is an
-    SMPLXModel or a vertex-sharded model (parallel/mesh.py::shard_model),
-    whose outputs lie on the parameters' device."""
+def pose_blends(model: SMPLXModel, params: BodyParams, use_pca: bool = True,
+                flat_hand_mean: bool = False, return_verts: bool = True
+                ) -> tuple:
+    """The forward up to skinning: (full_pose [B, 3J], rot_mats [B, J, 3,
+    3], posed_joints [B, J, 3], A [B, J, 4, 4], v_posed: one [B, Vb, 3] per
+    vertex block, none without return_verts)."""
     B = params.global_orient.shape[0]
     J = model.num_joints
     full_pose = _full_pose(
@@ -224,28 +224,93 @@ def smplx_forward(
 
     posed_joints, A = _rigid_transform_chain(rot_mats, joints_rest,
                                              model.parents)
+    return full_pose, rot_mats, posed_joints, A, tuple(v_posed)
 
+
+def skin(model: SMPLXModel, A: torch.Tensor, v_posed: tuple) -> torch.Tensor:
+    """Skinned vertices [B, V, 3] of `pose_blends`'s A and v_posed, by
+    kernel K1 on the card, on A's device."""
+    B, J = A.shape[:2]
+    A16 = A.reshape(B, J, 16)
+    skinned = [lbs_apply(blk.lbs_weights, A16.to(vp.device), vp,
+                         blk.lbs_plan).to(A.device)
+               for blk, vp in zip(model.blocks, v_posed)]
+    return skinned[0] if len(skinned) == 1 else torch.cat(skinned, 1)
+
+
+def has_contour(model: SMPLXModel, use_face_contour: bool = True) -> bool:
+    """Whether the keypoints hold the contour landmarks.  This and the
+    landmark functions below take an SMPLXModel or a JointsModel
+    (models/sparse.py), whose tables under the same names index its vertex
+    subset."""
+    return use_face_contour and model.dyn_lmk_faces_idx.shape[1] > 0
+
+
+def contour_bucket(model: SMPLXModel, rot_mats: torch.Tensor,
+                   use_face_contour: bool = True) -> Optional[torch.Tensor]:
+    """The contour landmarks' yaw bucket [B] from the pose's rotations;
+    None without contour landmarks."""
+    if not has_contour(model, use_face_contour):
+        return None
+    return _head_yaw_bucket(rot_mats, model.neck_kin_chain,
+                            model.dyn_lmk_faces_idx.shape[0])
+
+
+def landmark_rows(model: SMPLXModel, vertices: torch.Tensor,
+                  bucket: Optional[torch.Tensor] = None) -> tuple:
+    """The skinned vertices the keypoints read: the vertex joints [B, 21,
+    3], then the landmark triangles [B, 51, 3, 3] where the model has
+    them, then the contour's triangles [B, 17, 3, 3] and their barycentric
+    weights [B, 17, 3] where `bucket` is given."""
+    B = vertices.shape[0]
+    rows = [vertices[:, model.extra_joint_vids]]
+    if model.lmk_faces_idx.shape[0] > 0:
+        rows.append(vertices[:, model.faces[model.lmk_faces_idx]])
+    if bucket is not None:
+        tri_vids = model.faces[model.dyn_lmk_faces_idx[bucket]]  # [B, 17, 3]
+        lanes = torch.arange(B, device=vertices.device)[:, None, None]
+        rows += [vertices[lanes, tri_vids], model.dyn_lmk_bary_coords[bucket]]
+    return tuple(rows)
+
+
+def keypoints(model: SMPLXModel, posed_joints: torch.Tensor,
+              rows: tuple) -> torch.Tensor:
+    """The canonical joints [B, 144, 3] (fewer without landmarks): the
+    posed skeleton, then the vertex joints and landmarks of
+    `landmark_rows`."""
+    parts = [posed_joints, rows[0]]
+    n = 1
+    if model.lmk_faces_idx.shape[0] > 0:
+        parts.append(torch.einsum("lc,blcx->blx", model.lmk_bary_coords, rows[1]))
+        n = 2
+    if len(rows) > n:
+        tri_d, bary = rows[n:]
+        parts.append(torch.einsum("blc,blcx->blx", bary, tri_d))
+    return torch.cat(parts, dim=1)
+
+
+def smplx_forward(
+    model: SMPLXModel,
+    params: BodyParams,
+    *,
+    use_pca: bool = True,
+    flat_hand_mean: bool = False,
+    use_face_contour: bool = True,
+    joint_map: Optional[torch.Tensor] = None,
+    return_verts: bool = True,
+) -> SMPLXOutput:
+    """Batched SMPL-X forward; all params [B, ...].  `model` is an
+    SMPLXModel or a vertex-sharded model (parallel/mesh.py::shard_model),
+    whose outputs lie on the parameters' device: `pose_blends`, `skin`,
+    `landmark_rows`, `keypoints`."""
+    full_pose, rot_mats, posed_joints, A, v_posed = pose_blends(
+        model, params, use_pca, flat_hand_mean, return_verts)
     vertices = None
     joints_out = posed_joints
     if return_verts:
-        A16 = A.reshape(B, J, 16)
-        skinned = [lbs_apply(blk.lbs_weights, A16.to(vp.device), vp,
-                             blk.lbs_plan).to(lead)
-                   for blk, vp in zip(model.blocks, v_posed)]
-        vertices = skinned[0] if len(skinned) == 1 else torch.cat(skinned, 1)
-        parts = [posed_joints, vertices[:, model.extra_joint_vids]]
-        if model.lmk_faces_idx.shape[0] > 0:
-            tri = vertices[:, model.faces[model.lmk_faces_idx]]  # [B, 51, 3, 3]
-            parts.append(torch.einsum("lc,blcx->blx", model.lmk_bary_coords, tri))
-        if use_face_contour and model.dyn_lmk_faces_idx.shape[1] > 0:
-            bucket = _head_yaw_bucket(rot_mats, model.neck_kin_chain,
-                                      model.dyn_lmk_faces_idx.shape[0])
-            tri_vids = model.faces[model.dyn_lmk_faces_idx[bucket]]  # [B, 17, 3]
-            lanes = torch.arange(B, device=vertices.device)[:, None, None]
-            tri_d = vertices[lanes, tri_vids]                        # [B, 17, 3, 3]
-            parts.append(torch.einsum(
-                "blc,blcx->blx", model.dyn_lmk_bary_coords[bucket], tri_d))
-        joints_out = torch.cat(parts, dim=1)
+        vertices = skin(model, A, v_posed)
+        joints_out = keypoints(model, posed_joints, landmark_rows(
+            model, vertices, contour_bucket(model, rot_mats, use_face_contour)))
 
     if joint_map is not None:
         joints_out = joints_out[:, joint_map]

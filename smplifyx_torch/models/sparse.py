@@ -21,8 +21,10 @@ from smplifyx_torch.models.bodymodel import SMPLXModel
 from smplifyx_torch.models.forward import (
     BodyParams,
     _full_pose,
-    _head_yaw_bucket,
     _rigid_transform_chain,
+    contour_bucket,
+    keypoints,
+    landmark_rows,
 )
 from smplifyx_torch.ops.lbs import LBSPlan, check_plan, lbs_apply, lbs_plan
 from smplifyx_torch.ops.rotation import batch_rodrigues
@@ -44,17 +46,31 @@ class JointsModel(TensorFields):
     right_hand_components: torch.Tensor
     left_hand_mean: torch.Tensor
     right_hand_mean: torch.Tensor
-    extra_idx: torch.Tensor     # [21] positions within the subset
-    lmk_tri_sub: torch.Tensor   # [51, 3] subset positions of landmark corners
-    lmk_bary: torch.Tensor      # [51, 3]
-    dyn_tri_sub: torch.Tensor   # [L, 17, 3]
-    dyn_bary: torch.Tensor      # [L, 17, 3]
+    # The landmark tables under SMPLXModel's names, over the subset's rows,
+    # so that forward.py's landmark functions read either model.
+    extra_joint_vids: torch.Tensor  # [21] positions within the subset
+    faces: torch.Tensor         # [51 + L * 17, 3] the landmark triangles
+    lmk_faces_idx: torch.Tensor     # [51] rows of faces
+    lmk_bary_coords: torch.Tensor   # [51, 3]
+    dyn_lmk_faces_idx: torch.Tensor     # [L, 17] rows of faces
+    dyn_lmk_bary_coords: torch.Tensor   # [L, 17, 3]
     parents: tuple
     neck_kin_chain: tuple
     num_joints: int
 
     def __post_init__(self):
         check_plan(self.sub_lbs, self.lbs_plan, "JointsModel")
+
+
+def landmark_tables(lmk_tris: torch.Tensor, dyn_tris: torch.Tensor) -> dict:
+    """A JointsModel's `faces`, `lmk_faces_idx` and `dyn_lmk_faces_idx`
+    from the landmark triangles [51, 3] and the contour's [L, 17, 3] in
+    subset positions."""
+    n, (L, C) = lmk_tris.shape[0], dyn_tris.shape[:2]
+    dev = lmk_tris.device
+    return {"faces": torch.cat([lmk_tris, dyn_tris.reshape(-1, 3)]),
+            "lmk_faces_idx": torch.arange(n, device=dev),
+            "dyn_lmk_faces_idx": n + torch.arange(L * C, device=dev).reshape(L, C)}
 
 
 def build_joints_model(model: SMPLXModel) -> JointsModel:
@@ -88,28 +104,21 @@ def build_joints_model(model: SMPLXModel) -> JointsModel:
         right_hand_components=model.right_hand_components,
         left_hand_mean=model.left_hand_mean,
         right_hand_mean=model.right_hand_mean,
-        extra_idx=to_sub(extra_vids),
-        lmk_tri_sub=to_sub(lmk_tris),
-        lmk_bary=model.lmk_bary_coords,
-        dyn_tri_sub=to_sub(dyn_tris),
-        dyn_bary=model.dyn_lmk_bary_coords,
+        extra_joint_vids=to_sub(extra_vids),
+        **landmark_tables(to_sub(lmk_tris), to_sub(dyn_tris)),
+        lmk_bary_coords=model.lmk_bary_coords,
+        dyn_lmk_bary_coords=model.dyn_lmk_bary_coords,
         parents=model.parents,
         neck_kin_chain=model.neck_kin_chain,
         num_joints=model.num_joints,
     )
 
 
-def joints_forward(
-    jm: JointsModel,
-    params: BodyParams,
-    *,
-    use_pca: bool = True,
-    flat_hand_mean: bool = False,
-    use_face_contour: bool = True,
-    joint_map: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """[B, ...] params -> mapped joints [B, K, 3], equal to
-    smplx_forward(...).joints without skinning the full mesh."""
+def pose_blends(jm: JointsModel, params: BodyParams, use_pca: bool = True,
+                flat_hand_mean: bool = False) -> tuple:
+    """The joints-only forward up to skinning, in the layout of
+    `forward.pose_blends`: (full_pose, rot_mats, posed_joints, A, (v_posed
+    [B, S, 3] of the subset,))."""
     B = params.global_orient.shape[0]
     J = jm.num_joints
     full_pose = _full_pose(
@@ -128,20 +137,31 @@ def joints_forward(
     v_shaped = jm.sub_template + torch.einsum("bk,vck->bvc", coeffs,
                                               jm.sub_shapedirs)
     v_posed = v_shaped + (pose_feature @ jm.sub_posedirs).reshape(B, S, 3)
-    verts_sub = lbs_apply(jm.sub_lbs, A.reshape(B, J, 16), v_posed,
-                          jm.lbs_plan)
+    return full_pose, rot_mats, posed_joints, A, (v_posed,)
 
-    parts = [posed_joints, verts_sub[:, jm.extra_idx]]
-    if jm.lmk_tri_sub.shape[0] > 0:
-        tri = verts_sub[:, jm.lmk_tri_sub]                 # [B, 51, 3, 3]
-        parts.append(torch.einsum("lc,blcx->blx", jm.lmk_bary, tri))
-    if use_face_contour and jm.dyn_tri_sub.shape[1] > 0:
-        bucket = _head_yaw_bucket(rot_mats, jm.neck_kin_chain,
-                                  jm.dyn_tri_sub.shape[0])
-        lanes = torch.arange(B, device=verts_sub.device)[:, None, None]
-        tri_d = verts_sub[lanes, jm.dyn_tri_sub[bucket]]   # [B, 17, 3, 3]
-        parts.append(torch.einsum("blc,blcx->blx", jm.dyn_bary[bucket], tri_d))
-    joints = torch.cat(parts, dim=1)
+
+def skin(jm: JointsModel, A: torch.Tensor, v_posed: tuple) -> torch.Tensor:
+    """The subset's skinned vertices [B, S, 3], by kernel K1 on the card."""
+    B, J = A.shape[:2]
+    return lbs_apply(jm.sub_lbs, A.reshape(B, J, 16), v_posed[0], jm.lbs_plan)
+
+
+def joints_forward(
+    jm: JointsModel,
+    params: BodyParams,
+    *,
+    use_pca: bool = True,
+    flat_hand_mean: bool = False,
+    use_face_contour: bool = True,
+    joint_map: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """[B, ...] params -> mapped joints [B, K, 3], equal to
+    smplx_forward(...).joints without skinning the full mesh."""
+    _, rot_mats, posed_joints, A, v_posed = pose_blends(
+        jm, params, use_pca, flat_hand_mean)
+    joints = keypoints(jm, posed_joints, landmark_rows(
+        jm, skin(jm, A, v_posed),
+        contour_bucket(jm, rot_mats, use_face_contour)))
     if joint_map is not None:
         joints = joints[:, joint_map]
     return joints

@@ -42,6 +42,7 @@ from torch import nn
 from smplifyx_torch.ops.rotation import rotmat_to_aa
 from smplifyx_torch.utils import timing
 from smplifyx_torch.utils.device import resolve_device
+from smplifyx_torch.utils.graphs import segment
 
 LATENT_DIM = 32
 NUM_NEURONS = 512
@@ -105,14 +106,19 @@ class VPoser(nn.Module):
         lanes = flat.shape[0]
         with timing.span("vposer", lanes=lanes, grad=torch.is_grad_enabled()
                          and z.requires_grad) as sp:
-            x = leaky_relu(self.bodyprior_dec_fc1(flat))
-            x = leaky_relu(self.bodyprior_dec_fc2(x))
-            x = self.bodyprior_dec_out(x)
-            aa = rotmat_to_aa(rot6d_to_rotmat(x.reshape(-1, NUM_JOINTS, 6)))
+            aa = segment("vposer", self._decode_rows, flat)
             if sp is not None:
                 timing.backward_span("vposer", aa, flat, lanes=lanes,
                                      backward=True)
         return aa.reshape(*z.shape[:-1], POSE_DIM)
+
+    def _decode_rows(self, flat: torch.Tensor) -> torch.Tensor:
+        """[N, 32] -> [N, 21, 3]: the decoder's layers, one stretch of an
+        evaluation (utils/graphs.py)."""
+        x = leaky_relu(self.bodyprior_dec_fc1(flat))
+        x = leaky_relu(self.bodyprior_dec_fc2(x))
+        x = self.bodyprior_dec_out(x)
+        return rotmat_to_aa(rot6d_to_rotmat(x.reshape(-1, NUM_JOINTS, 6)))
 
     def encode(self, pose: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """pose [..., 63] -> (mu, sigma) [..., 32]."""

@@ -54,6 +54,7 @@ from smplifyx_torch.ops.gather import (
     scatter_add_rows,
 )
 from smplifyx_torch.utils import timing
+from smplifyx_torch.utils.graphs import segment
 
 _BLK = 8  # triangles per block (broad-phase leaf)
 _SUP = 8  # blocks per superblock
@@ -741,7 +742,7 @@ class CollisionFn:
     def apply(self, vertices, aux: CollisionAux) -> torch.Tensor:
         """Penalty [B] on a fixed pair list; differentiable in vertices."""
         ta, tb = _PairGather.apply(vertices, aux.corner_plan, aux.pair_plan)
-        return self.penalty(ta, tb, aux.valid)
+        return segment("penalty", self.penalty, ta, tb, aux.valid)
 
     def __call__(self, vertices) -> torch.Tensor:
         return self.apply(vertices, self.build(vertices))

@@ -568,3 +568,123 @@ def test_vposer_backward_span_nests_on_autograds_device_thread(card):
         assert bwd.attrs == {"lanes": 256, "backward": True}
         assert ev.start_ns <= fwd.end_ns <= bwd.start_ns <= bwd.end_ns \
             <= after.start_ns <= ev.end_ns
+
+
+@pytest.mark.parametrize("kind,over", [
+    ("combined", {}), ("vposer", {}), ("combined", {"coll_broad_every": 3})],
+    ids=["combined", "vposer", "combined-refresh3"])
+def test_graphed_fit_is_bit_equal_to_eager(card, monkeypatch, kind, over):
+    """A camera stage and two body stages at B = 8, the second with the
+    hoisted collision term, on the synthetic model at full width: every
+    stage replaying CUDA graphs from its second evaluation ends bit-equal
+    to the eager fit (reached as the CPU reaches it: the stage's decision
+    says no).  With a broad phase every 3 iterations the collision stage
+    refreshes its pair list after the capture: the replays then take the
+    new pairs and mask."""
+    from _fit_slices import same_fit, slice_fit
+
+    import smplifyx_torch.fitting.pipeline as pipeline
+    from smplifyx_torch.ops.collision import CollisionFn
+    from smplifyx_torch.problem import SLICE_VERTS
+    from smplifyx_torch.utils import graphs
+
+    fit, _ = slice_fit(kind, 8, SLICE_VERTS, card, maxiters=10, **over)
+    captures = []
+    capture = graphs._Stage._capture
+
+    def counted(st):
+        captures.append(1)
+        capture(st)
+
+    monkeypatch.setattr(graphs._Stage, "_capture", counted)
+    refreshes = []
+    build_refresh = CollisionFn.build_refresh
+
+    def refresh(fn, *a):
+        refreshes.append(len(captures))
+        return build_refresh(fn, *a)
+
+    monkeypatch.setattr(CollisionFn, "build_refresh", refresh)
+    graphed = fit()
+    assert len(captures) == 3
+    # With broad phases every 3 iterations the collision stage refreshes
+    # its pairs after its capture.
+    assert not over or 3 in refreshes
+    monkeypatch.setattr(pipeline, "_graphed", lambda *a: False)
+    eager = fit()
+    torch.cuda.synchronize()
+    assert len(captures) == 3
+    assert same_fit(graphed, eager) == {}
+
+
+def test_graphed_evaluations_launch_the_kernels_eagerly(card):
+    """In a collision stage, an evaluation that replays its segments
+    launches K1, K2 and K3 exactly as many times as the eager one (they are
+    never captured) and gives the same bits; under the profiler, the
+    stage's first `evaluation` span carries `graphed_lanes` 0 and every
+    later one its lanes."""
+    from _fit_slices import slice_fit
+
+    from smplifyx_torch.fitting.energy import smplify_energy
+    from smplifyx_torch.fitting.lbfgs import LBFGSConfig, minimize
+    from smplifyx_torch.fitting.pipeline import recover_outputs
+    from smplifyx_torch.problem import SLICE_VERTS
+    from smplifyx_torch.utils import graphs, timing
+
+    full_f32_matmuls()
+    _, p = slice_fit("combined", 8, SLICE_VERTS, card, maxiters=2)
+    s, session = p.session.settings, p.session
+    cf = session.collision_for(p.model)
+    k = p.schedule.num_stages - 1
+    w = p.schedule.stage(k)
+
+    def vertices(z):
+        return recover_outputs(p.model, s, z, session.decode_body,
+                               device=card)[0].vertices
+
+    def fun(z, aux):
+        return smplify_energy(z, s, p.model, p.frames, w, k,
+                              p.schedule.num_stages, session.decode_body,
+                              session.joint_map, joints_model=p.jm,
+                              collision_fn=cf, collision_aux=aux)
+
+    def counters():
+        return (tlbs.lbs_apply.launches, tg.gather_rows.launches,
+                tg.scatter_add_rows.launches, tg.scatter_add_rows.join_launches)
+
+    aux = cf.build(vertices(p.x0))
+    runs = []
+    with graphs.stage(True):
+        for grad in (True, True, True, False, True, False):
+            before = counters()
+            with graphs.evaluation(grad) as graphed:
+                x = p.x0.detach().requires_grad_(grad)
+                with torch.set_grad_enabled(grad):
+                    f = fun(x, aux)
+                    g = torch.autograd.grad(f.sum(), x)[0] if grad else None
+                f = f.detach().clone()
+            torch.cuda.synchronize()
+            runs.append((grad, graphed, f, g, tuple(
+                a - b for a, b in zip(counters(), before))))
+    assert [r[1] for r in runs] == [False] + [True] * 5
+    first, value = runs[0], runs[3]
+    assert first[4][:3] == (1, 2, 2) and value[4] == (1, 2, 0, 0)
+    for grad, _, f, g, launched in runs[1:]:
+        assert launched == (first[4] if grad else value[4])
+        assert torch.equal(f, first[2])
+        assert g is None or torch.equal(g, first[3])
+
+    timing.RECORDER.clear()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]):
+            with graphs.stage(True):
+                minimize(fun, p.x0, None, LBFGSConfig(
+                    max_iters=3, ls_mode="armijo", aux_every=12),
+                    aux_fn=lambda z: cf.build(vertices(z)))
+        evals = [sp for sp in timing.RECORDER.spans if sp.name == "evaluation"]
+    finally:
+        timing.RECORDER.clear()
+    assert len(evals) > 3
+    assert [sp.attrs["graphed_lanes"] for sp in evals] == [0] + [8] * (
+        len(evals) - 1)
